@@ -1,9 +1,9 @@
-"""flash_attention_tpu — a TPU-native flash-attention engine.
+"""flash_attention_tpu — a flash-attention engine in JAX for NVIDIA Hopper.
 
-Built from scratch in JAX/Pallas with the capabilities of the
-``flash-attention-cuda`` reference (see /root/repo/SURVEY.md): a fused
+Built in JAX/Pallas with the capabilities of the ``flash-attention-cuda``
+reference (see SURVEY.md): a fused
 QKᵀ → online-softmax → PV forward pass (causal + non-causal), fused backward
-kernels (custom VJP), an adaptive block-size dispatcher, split-KV partial
+kernels (custom VJP), a shape-derived tile choice, split-KV partial
 attention with log-sum-exp merge, quantized KV-cache decode, packed-sequence
 attention with segment-aware block skipping, sliding-window attention with
 O(window) rolling KV caches (dense ring buffer + paged ring), a
@@ -12,7 +12,7 @@ weight-only int8 (W8A16) model quantization for serving, and multi-chip
 sharding over a ``jax.sharding.Mesh``.
 
 Layout:
-  ops/       Pallas kernels + pure-JAX oracle (the compute path)
+  ops/       Pallas kernels (Triton route) + pure-JAX oracle (the compute path)
   models/    attention / transformer modules built on the kernels
   parallel/  mesh, shard_map wrappers, ring attention
   serving/   continuous batching engine + scheduler wrapper

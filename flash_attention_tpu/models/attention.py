@@ -156,7 +156,11 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
     vq, vs = _quantize_for_cache(cfg, v_new)
     t = k_new.shape[2]
     max_seq = cache.k.shape[2]
-    batch_idx = jnp.arange(k_new.shape[0])
+    # Batch, head and row are all indexed so the scatters update the donated
+    # buffers in place (a slice between indexed dimensions makes XLA
+    # transpose the whole buffer there and back).
+    batch_idx = jnp.arange(k_new.shape[0])[:, None, None]
+    head_idx = jnp.arange(k_new.shape[1])[None, :, None]
 
     if cfg.rolling and cfg.attention_sinks:
         # StreamingLLM two-region layout: positions [0, sinks) at their own
@@ -174,8 +178,8 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
         pos = jnp.where(keep, slot_idx, max_seq)  # OOB -> dropped
 
         def upd(buf, new):
-            return buf.at[batch_idx[:, None], :, pos, :].set(
-                jnp.swapaxes(new, 1, 2).astype(buf.dtype), mode="drop"
+            return buf.at[batch_idx, head_idx, pos[:, None, :]].set(
+                new.astype(buf.dtype), mode="drop"
             )
 
         new_lengths = start_positions + t
@@ -196,8 +200,8 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
 
         def upd(buf, new):
             # new: [B, H, keep, *] -> scatter rows at per-batch slots.
-            return buf.at[batch_idx[:, None], :, pos, :].set(
-                jnp.swapaxes(new, 1, 2).astype(buf.dtype)
+            return buf.at[batch_idx, head_idx, pos[:, None, :]].set(
+                new.astype(buf.dtype)
             )
 
         new_lengths = start_positions + t
@@ -205,9 +209,9 @@ def write_cache(cfg: AttentionConfig, cache: KVCache, k_new, v_new, start_positi
 
         def upd(buf, new):
             # start == max_seq is out of bounds -> dropped (not clamped).
-            return buf.at[batch_idx, :, start_positions, :].set(
-                new[:, :, 0, :].astype(buf.dtype), mode="drop"
-            )
+            return buf.at[
+                batch_idx, head_idx, start_positions[:, None, None]
+            ].set(new.astype(buf.dtype), mode="drop")
 
         new_lengths = jnp.minimum(start_positions + t, max_seq)
     else:
@@ -263,9 +267,9 @@ def _wo(params):
 def _output_proj(params, o: jax.Array, out_dtype):
     """wo projection of [B, H, T, D] kernel output -> [B, T, model_dim].
 
-    Low-precision operands with fp32 MXU accumulation (the transformer.py
+    Low-precision operands with fp32 accumulation (the transformer.py
     einsum convention) — upcasting wo to fp32 would materialize a weight
-    copy per call and halve the MXU rate.
+    copy per call and leave the bf16 tensor-core path.
     """
     out = jnp.einsum(
         "bhtd,hdm->btm", o, _wo(params), preferred_element_type=jnp.float32
@@ -394,9 +398,11 @@ def attention_prefill_chunk(
             pos = p_abs % w_buf
 
         def ring_upd(buf, new):
-            # new: [1, H, t, *] -> rows scattered at the slot's ring slots.
-            return buf.at[slot, :, pos, :].set(
-                jnp.swapaxes(new[0], 0, 1).astype(buf.dtype)
+            # new: [1, H, t, *] -> rows scattered at the slot's ring slots
+            # (slot, head and row indexed: an in-place scatter).
+            heads = jnp.arange(buf.shape[1])[:, None]
+            return buf.at[slot, heads, pos[None, :]].set(
+                new[0].astype(buf.dtype)
             )
 
         cache = cache._replace(
@@ -547,7 +553,10 @@ def attention_prefill_chunk_paged(
     """Chunked prefill over a PAGED cache: one chunk ([1, T, model_dim], T a
     page multiple) of one sequence, attending the slot's pages [0, kv_end)
     (start + T == kv_end, kv_end static). Returns (output, updated cache)."""
-    from flash_attention_tpu.ops.paged import paged_gather_kv, paged_write_prefill
+    from flash_attention_tpu.ops.paged import (
+        paged_prefill_attention,
+        paged_write_prefill,
+    )
 
     _, t, _ = x.shape
     q, k, v = _project_qkv(
@@ -557,38 +566,16 @@ def attention_prefill_chunk_paged(
     paged_cache = paged_write_prefill(
         paged_cache, k[0], v[0], slot, jnp.asarray(start) + t, start=start
     )
-    if t % 128 == 0:
-        # In-place paged chunk attention: pages stream through the kernel's
-        # scalar-prefetch page table, so chunk c moves O(visible pages) HBM
-        # bytes instead of re-densifying the whole O(c·chunk) prefix. With
-        # a sliding window the page walk is band-limited (O(window + chunk)
-        # pages) — which also makes it the REQUIRED path over the paged
-        # ring, whose rolled-out logical pages alias newer physical pages
-        # outside the band.
-        from flash_attention_tpu.ops.paged import paged_prefill_attention
-
-        o = paged_prefill_attention(
-            q, paged_cache, slot, jnp.asarray(start) + t, chunk_len=t,
-            logit_softcap=cfg.logit_softcap,
-            sliding_window=cfg.sliding_window,
-            attention_sinks=cfg.attention_sinks,
-        )
-    else:
-        # Chunks that are a page multiple but NOT a 128 multiple (small
-        # page_size configs) gather densely: the in-place kernel's Q grid
-        # requires 128-aligned chunks.
-        if cfg.attention_sinks:
-            raise ValueError(
-                "attention_sinks chunked prefill requires 128-aligned "
-                "chunks (the dense-gather fallback has no sink mask)"
-            )
-        k_vis, v_vis = paged_gather_kv(
-            paged_cache, slot, kv_end, dtype=cfg.jnp_dtype
-        )
-        o = flash_attention(
-            q, k_vis, v_vis, causal=True, block_sizes=block_sizes,
-            sliding_window=cfg.sliding_window, logit_softcap=cfg.logit_softcap,
-        )
+    # The chunk attends the band of pages its rows can see: all of
+    # [0, kv_end), or with a sliding window only the window band plus the
+    # pinned sink page — which also keeps it off the paged ring's rolled-out
+    # logical pages, whose physical pages now hold newer positions.
+    o = paged_prefill_attention(
+        q, paged_cache, slot, kv_end, chunk_len=t,
+        logit_softcap=cfg.logit_softcap,
+        sliding_window=cfg.sliding_window,
+        attention_sinks=cfg.attention_sinks,
+    )
     return _output_proj(params, o, x.dtype), paged_cache
 
 
@@ -597,8 +584,8 @@ def attention_decode_paged_deferred(
 ):
     """Decode-step attention WITHOUT the per-layer cache write.
 
-    The per-layer scatter write is invocation-overhead bound (~0.5 ms each
-    on v5e), so an L-layer step paid L of them. Here the kernel attends
+    A per-layer scatter write is one more small dispatch per layer. Here
+    the kernel attends
     over the cache as-is (the new token is NOT in it) and the current
     token's self-attention term — score q.k_new at full precision, output
     v_new — is folded in with the standard LSE combine (ops/merge.py). The

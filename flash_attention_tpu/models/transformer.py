@@ -2,8 +2,8 @@
 
 The flagship serving model family for the north-star configs (7B-class,
 32 q heads / 8 kv heads / head_dim 128). Functional pytree params; every
-matmul shaped for the MXU (bf16 inputs, fp32 accumulation via
-preferred_element_type); attention runs through the Pallas kernels.
+matmul shaped for the tensor cores (bf16 inputs, fp32 accumulation via
+preferred_element_type); attention runs through the attention ops.
 """
 
 from __future__ import annotations
@@ -353,10 +353,9 @@ def decode_step_logits_paged(params, cfg: ModelConfig, tokens, caches):
     Uses the deferred-write path: every layer attends over the cache as-is
     with the current token's self term merged in at full precision
     (attention_decode_paged_deferred), and ALL layers' K/V tokens land in
-    one paged_write_tokens_multi scatter after the layer stack — one
-    Pallas-call overhead instead of num_layers (the per-layer scatter was
-    ~0.5 ms/call on v5e, ~2 ms of a 9 ms 4-layer step). sliding_window <= 1
-    (degenerate) keeps the write-first path.
+    one paged_write_tokens_multi scatter after the layer stack instead of
+    one write inside each layer. sliding_window <= 1 (degenerate) keeps the
+    write-first path.
     """
     from flash_attention_tpu.ops.paged import paged_write_tokens_multi
 

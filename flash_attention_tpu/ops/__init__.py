@@ -1,1 +1,2 @@
-"""Compute kernels: Pallas flash attention, decode, merge, quantization, oracle."""
+"""Compute kernels: Pallas (Triton) flash attention and paged decode, plain-JAX
+decode, merge, quantization, oracle."""

@@ -1,52 +1,21 @@
-"""Fused flash-attention backward kernels (Pallas / Mosaic TPU).
+"""Flash-attention backward kernels (Pallas, Triton route, for Hopper).
 
-The reference is forward-only (SURVEY.md §2 — no backward kernel exists in
-flash_attention.cu); a complete attention engine needs training gradients, so
-this module supplies the standard flash-attention-2 backward recurrence as two
-Pallas kernels, re-derived for the TPU memory model:
+The reference has no backward pass (SURVEY.md §2); this is new capability
+under the same numerics contract. Two kernels, each owning its output tile so
+that no two programs ever write the same rows (Hopper runs programs in
+parallel, in no order):
 
-  * ``dq`` kernel: grid (head_blocks, q_blocks, kv_blocks) — mirrors the
-    forward's layout (Q block resident in VMEM across the KV axis) and reuses
-    the forward's causal KV-block clamping so fully-masked blocks issue no
-    DMA and no FLOPs.
-  * ``dkv`` kernel: grid (kv_head_blocks, kv_blocks, group·q_blocks) — the
-    K/V blocks stay resident while Q/dO stream; the innermost axis also walks
-    the GQA group so dK/dV accumulate the head-group sum in VMEM instead of
-    materializing per-q-head partials in HBM. Score tiles are computed
-    *transposed* ([block_kv, block_q]) so the per-row softmax statistics
-    (LSE, delta) broadcast along lanes with no relayout.
+  * ``dkv``: one program per (KV head, KV tile) holds K and V and loops over
+    every Q tile of every Q head of its GQA group, accumulating dK and dV in
+    fp32 registers;
+  * ``dq``: one program per (Q head, Q tile) holds Q, dO, the LSE and
+    delta = rowsum(dO ∘ O) and loops over the KV tiles, accumulating dQ.
 
-Both kernels head-batch (``block_h``, MHA only): blocks carry a leading
-head dim and every matmul runs batched over it, halving/quartering the
-per-grid-step fixed costs exactly as the forward's block_h does
-(ops/tuning.py). GQA and packed-sequence (segment) paths run unbatched —
-their per-head index maps don't commute with head blocking.
-
-Recurrence (S = scale·QKᵀ, P = softmax(S), O = PV):
-    delta = rowsum(dO ∘ O)            (precomputed in-graph, fp32)
-    dV = Pᵀ dO
-    dP = dO Vᵀ
-    dS = P ∘ (dP − delta)
-    dQ = scale · dS K
-    dK = scale · dSᵀ Q
-with P recomputed from the forward's base-2 LSE residual:
-    P = exp2(S·scale·log2e − lse2)
-which matches the forward's exp2-domain softmax bit-for-bit (ops/common.py).
-
-Causal masked-work elimination mirrors the forward's three tiers:
-  * whole-superblock sub-tiling (``block_sub``, one (q, kv) block pair):
-    live-prefix MMAs for dq, live-suffix for dkv, no accumulator scratch;
-  * multi-block diagonal sub-tiling (``block_sub`` with block_q == block_kv
-    < seq): the diagonal block runs sub-MMAs over exactly its live range,
-    interior blocks run completely mask-free;
-  * clamped index maps so fully-masked blocks issue no DMA.
-
-Sliding-window masks narrow the live KV (dq) / Q (dkv) block ranges exactly as
-in the forward (clamped index maps issue no DMA for dead blocks). Logit
-soft-capping (z → c·tanh(z/c)) folds its derivative into dS:
-    dS_raw = dS_capped ∘ (1 − tanh²(z/c))
-with tanh recomputed from the raw scores (one extra VPU pass; no extra
-residual tensor).
+Both recompute P = exp2(s·scale·log2e − lse2) from the forward's base-2 LSE
+residual, split their loop into a mask-free middle and masked edges exactly
+like the forward, and narrow packed inputs to the tiles whose segment ids can
+match. Rows with no visible key (lse2 = -inf) contribute nothing: their LSE
+is replaced by +inf, so P underflows to 0.
 """
 
 from __future__ import annotations
@@ -55,934 +24,178 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flash_attention_tpu.ops.common import LOG2E, MASK_VALUE, ceil_to
-from flash_attention_tpu.ops.tuning import BlockSizes
+from flash_attention_tpu.ops.common import (
+    MASK_VALUE,
+    ceil_to,
+    next_pow2,
+    triton_params,
+)
+from flash_attention_tpu.ops.flash_attention import (
+    _cdiv,
+    _kv_ranges,
+    _logits,
+    _visible,
+    pad_segments,
+    segment_block_bounds,
+    tile_loop,
+)
+from flash_attention_tpu.ops.tuning import BlockSizes, clamp_to_seq
 
 
-def _bwd_dq_kernel(
-    q_ref,      # [hb, block_q, d]
-    k_ref,      # [hb, block_kv, d]
-    v_ref,      # [hb, block_kv, d]
-    do_ref,     # [hb, block_q, d]
-    lse_ref,    # [hb, block_q, 1]
-    delta_ref,  # [hb, block_q, 1]
-    dq_ref,     # [hb, block_q, d]
-    acc_scr,    # [hb, block_q, d] fp32 (None for the superblock subtile)
-    *,
-    causal: bool,
-    scale: float,
-    scale2: float,
-    q_len: int,
-    kv_len: int,
-    block_q: int,
-    block_kv: int,
-    num_kv_blocks: int,
-    kv_pad: bool,
-    window: int | None = None,
-    softcap_in: float | None = None,
-    cap_out2: float | None = None,
-    seg_refs=None,
-    seg_live_ref=None,  # flat [B*nq*nkv] int32 liveness (packed skipping)
-    seg_heads: int = 1,
-    seg_nq: int = 0,
-    seg_nkv: int = 0,
-    subtile: int = 0,
-    diag_subtile: int = 0,
+def _probs_and_dlogits(q, k, v, do, lse, delta, ok, *, sm_scale, softcap):
+    """P and dL/d(QKᵀ) of one (Q tile, KV tile) pair."""
+    s, t = _logits(pl.dot(q, k, trans_b=True), sm_scale=sm_scale,
+                   softcap=softcap)
+    if ok is not None:
+        s = jnp.where(ok, s, MASK_VALUE)
+    p = jnp.exp2(s - lse[:, None])
+    dp = pl.dot(do, v, trans_b=True)
+    ds = p * (dp - delta[:, None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds * sm_scale
+
+
+def _dq_kernel(
+    q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref, *refs,
+    sm_scale, causal, window, softcap, packed, q_len, kv_len, kv_pad,
+    block_q, block_kv,
 ):
+    if packed:
+        segq_ref, segkv_ref, bounds_ref, dq_ref = refs
+    else:
+        (dq_ref,) = refs
     iq = pl.program_id(1)
-    ikv = pl.program_id(2)
-    diag_offset = kv_len - q_len
+    r0 = iq * block_q + (kv_len - q_len)
+    q = q_ref[...]
+    do = do_ref[...]
+    lse = lse_ref[...]
+    delta = delta_ref[...]
+    seg_q = segq_ref[...] if packed else None
+    rows = r0 + jnp.arange(block_q, dtype=jnp.int32)[:, None]
 
-    if subtile:
-        # Causal single-superblock sub-tiling (the backward twin of the
-        # forward's block_sub path): the whole (q, kv) problem is one block
-        # pair; unroll over `subtile`-row Q sub-blocks, each doing its three
-        # MMAs (scores, dP, dS·K) over exactly its live KV prefix. No
-        # accumulator scratch at all — each sub-block's dq rows are complete
-        # after one pass. Masked-region MXU waste drops from the tri grid's
-        # ~25-50% to ~1/(n+1).
-        w = subtile
-        q = q_ref[...]
-        k = k_ref[...]
-        v = v_ref[...]
-        do = do_ref[...]
-        kv_block = k.shape[1]
-        for i in range(block_q // w):
-            qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-            doi = jax.lax.slice_in_dim(do, i * w, (i + 1) * w, axis=1)
-            lse_i = lse_ref[:, i * w : (i + 1) * w]
-            delta_i = delta_ref[:, i * w : (i + 1) * w]
-            width = min(kv_block, ceil_to(diag_offset + (i + 1) * w, 128))
-            ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-            vi = jax.lax.slice_in_dim(v, 0, width, axis=1)
-            raw = jax.lax.dot_general(
-                qi, ki, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, w, width]
-            # dP is independent of the score chain: issue its matmul before
-            # the mask/exp2 VPU phase so the MXU works through it.
-            dp = jax.lax.dot_general(
-                doi, vi, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            if softcap_in is not None:
-                t = jnp.tanh(raw * softcap_in)
-                s2 = t * cap_out2
-            else:
-                s2 = raw * scale2
-            shape2d = s2.shape[1:]
-            col = jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                + i * w
-                + diag_offset
-            )
-            ok = col <= row
-            if kv_pad:
-                ok = jnp.logical_and(ok, col < kv_len)
-            if seg_refs is not None:
-                sq_ref, skv_ref = seg_refs
-                sq = sq_ref[0, 0, i * w : (i + 1) * w]
-                skv = skv_ref[0, 0, :width]
-                ok = jnp.logical_and(ok, sq[:, None] == skv[None, :])
-            s2 = jnp.where(ok[None], s2, MASK_VALUE)
-            p = jnp.exp2(s2 - lse_i)
-            ds = p * (dp - delta_i)
-            if softcap_in is not None:
-                ds = ds * (1.0 - t * t)
-            dq_i = jax.lax.dot_general(
-                ds.astype(k.dtype), ki, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            dq_ref[:, i * w : (i + 1) * w, :] = (dq_i * scale).astype(
-                dq_ref.dtype
-            )
-        return
+    def body(j, dq, masked):
+        start = j * block_kv
+        k = k_ref[pl.ds(start, block_kv), :]
+        v = v_ref[pl.ds(start, block_kv), :]
+        ok = None
+        if masked:
+            cols = start + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
+            seg_kv = segkv_ref[pl.ds(start, block_kv)] if packed else None
+            ok = _visible(rows, cols, kv_len=kv_len, kv_pad=kv_pad,
+                          causal=causal, window=window, seg_q=seg_q,
+                          seg_kv=seg_kv)
+        _, ds = _probs_and_dlogits(q, k, v, do, lse, delta, ok,
+                                   sm_scale=sm_scale, softcap=softcap)
+        return dq + pl.dot(ds.astype(k.dtype), k)
 
-    @pl.when(ikv == 0)
-    def _init():
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    if causal:
-        should_run = ikv * block_kv <= (iq + 1) * block_q - 1 + diag_offset
-        if window is not None:
-            # The block's last column must be inside the window of the
-            # block's first row: col > row - window for some (row, col).
-            should_run = jnp.logical_and(
-                should_run,
-                (ikv + 1) * block_kv - 1 > iq * block_q + diag_offset - window,
-            )
-    else:
-        should_run = True
-    if seg_live_ref is not None:
-        # Packed-sequence block skipping: fully cross-document blocks
-        # (disjoint segment-id ranges) contribute nothing — skip their
-        # five MMAs (the clamped index maps already skip their DMA). Flat
-        # [B*nq*nkv] prefetch indexing (the proven on-chip pattern).
-        b = pl.program_id(0) // seg_heads
-        should_run = jnp.logical_and(
-            should_run,
-            seg_live_ref[(b * seg_nq + iq) * seg_nkv + ikv] != 0,
-        )
-
-    def _dq_body(masked: bool):
-        q = q_ref[...]
-        k = k_ref[...]
-        do = do_ref[...]
-        v = v_ref[...]
-        raw = jax.lax.dot_general(
-            q, k, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_q, block_kv], raw scores
-        # dP is independent of the score chain: issue its matmul before the
-        # mask/exp2 VPU phase so the MXU works through it.
-        dp = jax.lax.dot_general(
-            do, v, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_q, block_kv]
-        if softcap_in is not None:
-            t_c = jnp.tanh(raw * softcap_in)
-            s2 = t_c * cap_out2  # exp2-domain capped logits
-        else:
-            s2 = raw * scale2
-
-        if masked and (causal or kv_pad or seg_refs is not None):
-            ok = None
-            shape2d = s2.shape[1:]
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                + ikv * block_kv
-            )
-            if causal:
-                row = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                    + iq * block_q
-                    + diag_offset
-                )
-                ok = col <= row
-                if window is not None:
-                    ok = jnp.logical_and(ok, col > row - window)
-            if kv_pad:
-                inb = col < kv_len
-                ok = inb if ok is None else jnp.logical_and(ok, inb)
-            if seg_refs is not None:
-                sq_ref, skv_ref = seg_refs
-                same = sq_ref[0, 0][:, None] == skv_ref[0, 0][None, :]
-                ok = same if ok is None else jnp.logical_and(ok, same)
-            s2 = jnp.where(ok[None], s2, MASK_VALUE)
-
-        p = jnp.exp2(s2 - lse_ref[...])  # [hb, block_q, block_kv]; masked -> 0
-        ds = p * (dp - delta_ref[...])
-        if softcap_in is not None:
-            ds = ds * (1.0 - t_c * t_c)  # tanh' folded into dS (masked: p=0)
-        acc_scr[...] += jax.lax.dot_general(
-            ds.astype(k.dtype), k, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-
-    if diag_subtile:
-        # Multi-block causal diag sub-tiling (the forward's diag_subtile
-        # twin): the diagonal KV block runs live-prefix sub-MMAs accumulated
-        # into acc_scr; strictly-interior blocks are provably fully live
-        # (enable conditions in flash_attention_bwd) and skip masking;
-        # above-diagonal blocks do nothing.
-        last_live = ((iq + 1) * block_q - 1 + diag_offset) // block_kv
-
-        @pl.when(ikv < last_live)
-        def _interior():
-            _dq_body(masked=False)
-
-        @pl.when(ikv == last_live)
-        def _diag():
-            w = diag_subtile
-            q = q_ref[...]
-            k = k_ref[...]
-            v = v_ref[...]
-            do = do_ref[...]
-            kv_block = block_kv
-            # Right-aligned additive causal mask: enable conditions put the
-            # diagonal at the block's local origin, so sub-block i's live
-            # prefix is exactly (i+1)*w columns and its mask is the
-            # [:, kv_block-width:] slice of ONE precomputed tile.
-            u = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 1)
-            r = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 0)
-            addmask = jnp.where(
-                u <= r + kv_block - w, 0.0, MASK_VALUE
-            ).astype(jnp.float32)
-            for i in range(block_q // w):
-                width = (i + 1) * w
-                rows = slice(i * w, (i + 1) * w)
-                qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-                doi = jax.lax.slice_in_dim(do, i * w, (i + 1) * w, axis=1)
-                ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-                vi = jax.lax.slice_in_dim(v, 0, width, axis=1)
-                raw = jax.lax.dot_general(
-                    qi, ki, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, width]
-                # dP is independent of the score chain (see _dq_body).
-                dp = jax.lax.dot_general(
-                    doi, vi, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                if softcap_in is not None:
-                    t_c = jnp.tanh(raw * softcap_in)
-                    s2 = t_c * cap_out2
-                else:
-                    s2 = raw * scale2
-                s2 = s2 + jax.lax.slice_in_dim(
-                    addmask, kv_block - width, kv_block, axis=1
-                )[None]
-                p = jnp.exp2(s2 - lse_ref[:, rows])
-                ds = p * (dp - delta_ref[:, rows])
-                if softcap_in is not None:
-                    ds = ds * (1.0 - t_c * t_c)
-                acc_scr[:, rows, :] += jax.lax.dot_general(
-                    ds.astype(k.dtype), ki, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-    else:
-        @pl.when(should_run)
-        def _compute():
-            _dq_body(masked=True)
-
-    @pl.when(ikv == num_kv_blocks - 1)
-    def _epilogue():
-        dq_ref[...] = (acc_scr[...] * scale).astype(dq_ref.dtype)
+    ranges = _kv_ranges(
+        r0, block_q=block_q, block_kv=block_kv,
+        num_kv_blocks=kv_pad // block_kv, kv_len=kv_len, causal=causal,
+        window=window,
+        seg_bounds=(bounds_ref[0], bounds_ref[1]) if packed else None,
+    )
+    dq = tile_loop(ranges, body, jnp.zeros(q.shape, jnp.float32), packed=packed)
+    dq_ref[...] = dq.astype(dq_ref.dtype)
 
 
-def _bwd_dkv_kernel(
-    q_ref,      # [hb_q, block_q, d]
-    k_ref,      # [hb, block_kv, d]
-    v_ref,      # [hb, block_kv, d]
-    do_ref,     # [hb_q, block_q, d]
-    lse_ref,    # [hb_q, 1, block_q]  (lane-oriented)
-    delta_ref,  # [hb_q, 1, block_q]
-    dk_ref,     # [hb, block_kv, d]
-    dv_ref,     # [hb, block_kv, d]
-    dk_scr,     # [hb, block_kv, d] fp32
-    dv_scr,     # [hb, block_kv, d] fp32
-    *,
-    causal: bool,
-    scale: float,
-    scale2: float,
-    q_len: int,
-    kv_len: int,
-    block_q: int,
-    block_kv: int,
-    num_q_blocks: int,
-    num_steps: int,
-    kv_pad: bool,
-    window: int | None = None,
-    softcap_in: float | None = None,
-    cap_out2: float | None = None,
-    seg_refs=None,
-    seg_live_ref=None,  # flat [B*nq*nkv] int32 liveness (packed skipping)
-    seg_heads: int = 1,
-    seg_nq: int = 0,
-    seg_nkv: int = 0,
-    subtile: int = 0,
-    diag_subtile: int = 0,
-):
-    ikv = pl.program_id(1)
-    t = pl.program_id(2)
-    iq = t % num_q_blocks
-    diag_offset = kv_len - q_len
+def _q_ranges(c0, *, block_q, block_kv, num_q_blocks, diag, causal, window,
+              seg_bounds=None):
+    """Q tile ranges that see the KV tile whose first column is c0.
 
-    @pl.when(t == 0)
-    def _init():
-        dk_scr[...] = jnp.zeros_like(dk_scr)
-        dv_scr[...] = jnp.zeros_like(dv_scr)
-
-    if subtile:
-        # Causal single-superblock sub-tiling, transposed: unroll over
-        # `subtile`-row KV sub-blocks, each doing its three MMAs over
-        # exactly its live Q SUFFIX (rows at/after the sub-block's diagonal).
-        # The grid's step axis walks the GQA group; dk/dv accumulate in the
-        # full-size scratch as before.
-        w = subtile
-        q = q_ref[...]
-        k = k_ref[...]
-        v = v_ref[...]
-        do = do_ref[...]
-        q_block = q.shape[1]
-        for j in range(block_kv // w):
-            # First live q row for kv rows [jw, (j+1)w): qpos >= jw, i.e.
-            # col >= jw - diag_offset; floor to the sublane boundary.
-            start = max(0, ((j * w - diag_offset) // 128) * 128)
-            L = q_block - start
-            ksub = jax.lax.slice_in_dim(k, j * w, (j + 1) * w, axis=1)
-            vsub = jax.lax.slice_in_dim(v, j * w, (j + 1) * w, axis=1)
-            qs = jax.lax.slice_in_dim(q, start, q_block, axis=1)
-            dos = jax.lax.slice_in_dim(do, start, q_block, axis=1)
-            lse_s = lse_ref[:, :, start:q_block]  # [hb_q, 1, L] lane-oriented
-            delta_s = delta_ref[:, :, start:q_block]
-            rawt = jax.lax.dot_general(
-                ksub, qs, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, w, L]
-            # dP is independent of the score chain: issue its matmul before
-            # the mask/exp2 VPU phase so the MXU works through it.
-            dpt = jax.lax.dot_general(
-                vsub, dos, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, w, L]
-            if softcap_in is not None:
-                tt = jnp.tanh(rawt * softcap_in)
-                s2t = tt * cap_out2
-            else:
-                s2t = rawt * scale2
-            shape2d = s2t.shape[1:]
-            kvpos = jax.lax.broadcasted_iota(jnp.int32, shape2d, 0) + j * w
-            qpos = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                + start
-                + diag_offset
-            )
-            ok = kvpos <= qpos
-            if kv_pad:
-                ok = jnp.logical_and(ok, kvpos < kv_len)
-            if seg_refs is not None:
-                sq_ref, skv_ref = seg_refs
-                skv = skv_ref[0, 0, j * w : (j + 1) * w]
-                sq = sq_ref[0, 0, start:q_block]
-                ok = jnp.logical_and(ok, skv[:, None] == sq[None, :])
-            s2t = jnp.where(ok[None], s2t, MASK_VALUE)
-            pt = jnp.exp2(s2t - lse_s)
-            dv_j = jax.lax.dot_general(
-                pt.astype(do.dtype), dos, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            dst = pt * (dpt - delta_s)
-            if softcap_in is not None:
-                dst = dst * (1.0 - tt * tt)
-            dk_j = jax.lax.dot_general(
-                dst.astype(q.dtype), qs, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            dk_scr[:, j * w : (j + 1) * w, :] += dk_j
-            dv_scr[:, j * w : (j + 1) * w, :] += dv_j
-
-        @pl.when(t == num_steps - 1)
-        def _sub_epilogue():
-            dk_ref[...] = (dk_scr[...] * scale).astype(dk_ref.dtype)
-            dv_ref[...] = dv_scr[...].astype(dv_ref.dtype)
-
-        return
-
-    if causal:
-        # The Q block overlaps the live (col <= row) region iff its LAST row
-        # reaches the kv block's first column.
-        should_run = (iq + 1) * block_q - 1 + diag_offset >= ikv * block_kv
-        if window is not None:
-            # ... and its FIRST row must be within the window of the kv
-            # block's last column (col > row - window for some pair).
-            should_run = jnp.logical_and(
-                should_run,
-                (ikv + 1) * block_kv - 1 > iq * block_q + diag_offset - window,
-            )
-    else:
-        should_run = True
-    if seg_live_ref is not None:
-        # Packed-sequence block skipping (see _bwd_dq_kernel).
-        b = pl.program_id(0) // seg_heads
-        should_run = jnp.logical_and(
-            should_run,
-            seg_live_ref[(b * seg_nq + iq) * seg_nkv + ikv] != 0,
-        )
-
-    def _dkv_body(masked: bool):
-        q = q_ref[...]
-        k = k_ref[...]
-        # Transposed score tile: kv rows on sublanes, q columns on lanes, so
-        # the per-q-row statistics (lse2, delta) broadcast along lanes.
-        rawt = jax.lax.dot_general(
-            k, q, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_kv, block_q]
-        do = do_ref[...]
-        v = v_ref[...]
-        # dP is independent of the score chain: issue its matmul before the
-        # mask/exp2 VPU phase so the MXU works through it.
-        dpt = jax.lax.dot_general(
-            v, do, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_kv, block_q]
-        if softcap_in is not None:
-            tt = jnp.tanh(rawt * softcap_in)
-            s2t = tt * cap_out2
-        else:
-            s2t = rawt * scale2
-
-        if masked and (causal or kv_pad or seg_refs is not None):
-            ok = None
-            shape2d = s2t.shape[1:]
-            kvpos = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                + ikv * block_kv
-            )
-            if causal:
-                qpos = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                    + iq * block_q
-                    + diag_offset
-                )
-                ok = kvpos <= qpos
-                if window is not None:
-                    ok = jnp.logical_and(ok, kvpos > qpos - window)
-            if kv_pad:
-                inb = kvpos < kv_len
-                ok = inb if ok is None else jnp.logical_and(ok, inb)
-            if seg_refs is not None:
-                sq_ref, skv_ref = seg_refs
-                same = skv_ref[0, 0][:, None] == sq_ref[0, 0][None, :]
-                ok = same if ok is None else jnp.logical_and(ok, same)
-            s2t = jnp.where(ok[None], s2t, MASK_VALUE)
-
-        pt = jnp.exp2(s2t - lse_ref[...])  # [hb, block_kv, block_q]
-        dv_scr[...] += jax.lax.dot_general(
-            pt.astype(do.dtype), do, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        dst = pt * (dpt - delta_ref[...])
-        if softcap_in is not None:
-            dst = dst * (1.0 - tt * tt)
-        dk_scr[...] += jax.lax.dot_general(
-            dst.astype(q.dtype), q, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-
-    if diag_subtile:
-        # Multi-block causal diag sub-tiling, transposed: the diagonal Q
-        # block runs live-SUFFIX sub-MMAs per KV sub-block; Q blocks strictly
-        # below the diagonal are fully live and skip masking; Q blocks above
-        # do nothing. Enable conditions (flash_attention_bwd) put the
-        # diagonal at the block pair's local origin.
-        first_live = (ikv * block_kv - diag_offset) // block_q
-
-        @pl.when(iq > first_live)
-        def _interior():
-            _dkv_body(masked=False)
-
-        @pl.when(iq == first_live)
-        def _diag():
-            w = diag_subtile
-            q = q_ref[...]
-            k = k_ref[...]
-            v = v_ref[...]
-            do = do_ref[...]
-            q_block = block_q
-            # Left-aligned additive mask: kv sub-block j's live q suffix
-            # starts at local column j*w, and relative to that origin the
-            # mask (kv row r live for suffix col c iff r <= c) is the
-            # [:, :L] slice of ONE precomputed tile — independent of j.
-            r = jax.lax.broadcasted_iota(jnp.int32, (w, q_block), 0)
-            c = jax.lax.broadcasted_iota(jnp.int32, (w, q_block), 1)
-            addmask = jnp.where(r <= c, 0.0, MASK_VALUE).astype(jnp.float32)
-            for j in range(block_kv // w):
-                start = j * w
-                L = q_block - start
-                ksub = jax.lax.slice_in_dim(k, j * w, (j + 1) * w, axis=1)
-                vsub = jax.lax.slice_in_dim(v, j * w, (j + 1) * w, axis=1)
-                qs = jax.lax.slice_in_dim(q, start, q_block, axis=1)
-                dos = jax.lax.slice_in_dim(do, start, q_block, axis=1)
-                lse_s = lse_ref[:, :, start:q_block]  # [hb_q, 1, L]
-                delta_s = delta_ref[:, :, start:q_block]
-                rawt = jax.lax.dot_general(
-                    ksub, qs, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, L]
-                # dP is independent of the score chain (see _dkv_body).
-                dpt = jax.lax.dot_general(
-                    vsub, dos, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, L]
-                if softcap_in is not None:
-                    tt = jnp.tanh(rawt * softcap_in)
-                    s2t = tt * cap_out2
-                else:
-                    s2t = rawt * scale2
-                s2t = s2t + jax.lax.slice_in_dim(addmask, 0, L, axis=1)[None]
-                pt = jnp.exp2(s2t - lse_s)
-                dv_j = jax.lax.dot_general(
-                    pt.astype(do.dtype), dos, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                dst = pt * (dpt - delta_s)
-                if softcap_in is not None:
-                    dst = dst * (1.0 - tt * tt)
-                dk_j = jax.lax.dot_general(
-                    dst.astype(q.dtype), qs, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                dk_scr[:, j * w : (j + 1) * w, :] += dk_j
-                dv_scr[:, j * w : (j + 1) * w, :] += dv_j
-    else:
-        @pl.when(should_run)
-        def _compute():
-            _dkv_body(masked=True)
-
-    @pl.when(t == num_steps - 1)
-    def _epilogue():
-        dk_ref[...] = (dk_scr[...] * scale).astype(dk_ref.dtype)
-        dv_ref[...] = dv_scr[...].astype(dv_ref.dtype)
-
-
-def _bwd_fused_kernel(
-    q_ref,      # [hb, block_q, d]
-    k_ref,      # [hb, block_kv, d]
-    v_ref,      # [hb, block_kv, d]
-    do_ref,     # [hb, block_q, d]
-    lse_ref,    # [hb, 1, block_q]  (lane-oriented)
-    delta_ref,  # [hb, 1, block_q]
-    dq_ref,     # [hb, block_q, d]   (out, indexed by iq)
-    dk_ref,     # [hb, kv_padded, d] (out, whole-KV, indexed by head batch)
-    dv_ref,
-    dq_scr,     # [hb, block_q, d] fp32
-    dk_scr,     # [num_kv_blocks, hb, block_kv, d] fp32 (whole-KV resident)
-    dv_scr,
-    *,
-    causal: bool,
-    scale: float,
-    scale2: float,
-    q_len: int,
-    kv_len: int,
-    block_q: int,
-    block_kv: int,
-    num_q_blocks: int,
-    num_kv_blocks: int,
-    kv_pad: bool,
-    window: int | None = None,
-    softcap_in: float | None = None,
-    cap_out2: float | None = None,
-    subtile: int = 0,
-    diag_subtile: int = 0,
-    diag_offset: int | None = None,
-    seg_refs=None,
-    seg_live_ref=None,  # flat [B*nq*nkv] liveness (packed prefetch gating)
-    seg_heads: int = 1,
-    seg_nq: int = 0,
-    seg_nkv: int = 0,
-    iq0: int = 0,
-    ikv0: int = 0,
-    packed_dsub: int = 0,
-    diag_pipe: bool = False,
-    dqin_ref=None,  # aliased prior-chunk dq partial (fp32), accumulated
-):
-    """ONE-pass backward: dq, dk, dv from a single score/softmax recompute.
-
-    The two-pass kernels above recompute S and P twice (once per pass): 9
-    MMAs + 2 exp per live block pair, and stream K/V (dq pass) plus Q/dO
-    (dkv pass) from HBM twice. This kernel computes the transposed score
-    tile once and produces all three gradients — 5 MMAs + 1 exp — at the
-    cost of keeping the WHOLE-KV fp32 dk/dv accumulators resident in VMEM
-    (2 * kv_len * d * 4 bytes per head batch), which bounds the kv range a
-    single call covers. Longer sequences run this kernel once per KV CHUNK
-    (flash_attention_bwd's chunked path): each chunk's dk/dv are complete,
-    dq partials are summed in fp32 — the score recompute total is unchanged
-    (each (q, kv) pair is still visited once).
-
-    diag_offset: causal alignment (kv position of q row 0, minus 0). The
-    self-attention default is kv_len - q_len (last rows aligned); the
-    chunked path passes it explicitly (the q slice for chunk c starts at
-    the chunk's first kv position, so its offset is 0).
-
-    Grid: (head_blocks, q_blocks, kv_blocks); the trailing two axes are
-    "arbitrary" — the dk/dv accumulators carry state across both. dq
-    completes per q row (written at the last kv step); dk/dv are whole-KV
-    output windows written once at this head batch's final grid step. MHA
-    only (GQA's group-summed dk/dv would need cross-head accumulation) and
-    unpacked sequences only.
+    ``diag`` = kv_len - q_len (query x sits at KV position x + diag).
+    Returns (lo, a, b, hi) as in flash_attention._kv_ranges.
     """
-    iq = pl.program_id(1)
-    ikv = pl.program_id(2)
-    if diag_offset is None:
-        diag_offset = kv_len - q_len
-
-    @pl.when(ikv == 0)
-    def _init_dq():
-        dq_scr[...] = jnp.zeros_like(dq_scr)
-
-    @pl.when(iq == 0)
-    def _init_dkv():
-        dk_scr[ikv] = jnp.zeros_like(dk_scr[ikv])
-        dv_scr[ikv] = jnp.zeros_like(dv_scr[ikv])
-
-    if subtile:
-        # Causal single-superblock sub-tiling: the whole (q, kv) problem is
-        # one block pair. Per `subtile`-row Q sub-block, all five MMAs run
-        # over exactly its live KV prefix; dq rows are complete after one
-        # pass, dk/dv accumulate in the resident scratch.
-        w = subtile
-        q = q_ref[...]
-        k = k_ref[...]
-        v = v_ref[...]
-        do = do_ref[...]
-        kv_block = k.shape[1]
-
-        def sub_mmas(i):
-            # Score + dP matmuls for sub-block i (both independent of any
-            # VPU work — with diag_pipe they are issued one sub-step early
-            # so the MXU runs through the current VPU phase).
-            width = min(kv_block, ceil_to(diag_offset + (i + 1) * w, 128))
-            qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-            doi = jax.lax.slice_in_dim(do, i * w, (i + 1) * w, axis=1)
-            ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-            vi = jax.lax.slice_in_dim(v, 0, width, axis=1)
-            rawt = jax.lax.dot_general(
-                ki, qi, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, width, w]
-            dpt = jax.lax.dot_general(
-                vi, doi, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            return rawt, dpt, width, qi, doi, ki, vi
-
-        n_sub = block_q // w
-        if diag_pipe:
-            pipe = sub_mmas(0)
-        for i in range(n_sub):
-            if diag_pipe:
-                rawt, dpt, width, qi, doi, ki, vi = pipe
-                if i + 1 < n_sub:
-                    pipe = sub_mmas(i + 1)
-            else:
-                rawt, dpt, width, qi, doi, ki, vi = sub_mmas(i)
-            lse_i = lse_ref[:, :, i * w : (i + 1) * w]
-            delta_i = delta_ref[:, :, i * w : (i + 1) * w]
-            if softcap_in is not None:
-                tt = jnp.tanh(rawt * softcap_in)
-                s2t = tt * cap_out2
-            else:
-                s2t = rawt * scale2
-            shape2d = s2t.shape[1:]
-            kvpos = jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-            qpos = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                + i * w
-                + diag_offset
-            )
-            ok = kvpos <= qpos
-            if kv_pad:
-                ok = jnp.logical_and(ok, kvpos < kv_len)
-            s2t = jnp.where(ok[None], s2t, MASK_VALUE)
-            pt = jnp.exp2(s2t - lse_i)
-            dst = pt * (dpt - delta_i)
-            if softcap_in is not None:
-                dst = dst * (1.0 - tt * tt)
-            dst_c = dst.astype(q.dtype)
-            pt_c = pt.astype(do.dtype)
-            dq_i = jax.lax.dot_general(
-                dst_c, ki, (((1,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, w, d]
-            dq_ref[:, i * w : (i + 1) * w, :] = (dq_i * scale).astype(
-                dq_ref.dtype
-            )
-            dk_scr[0, :, 0:width, :] += jax.lax.dot_general(
-                dst_c, qi, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            dv_scr[0, :, 0:width, :] += jax.lax.dot_general(
-                pt_c, doi, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-
-        @pl.when(iq == num_q_blocks - 1)
-        def _sub_epilogue():
-            dk_ref[...] = (dk_scr[0] * scale).astype(dk_ref.dtype)
-            dv_ref[...] = dv_scr[0].astype(dv_ref.dtype)
-
-        return
-
+    lo = 0
+    full_lo = 0
+    hi = num_q_blocks
+    full_hi = num_q_blocks
     if causal:
-        should_run = ikv * block_kv <= (iq + 1) * block_q - 1 + diag_offset
-        if window is not None:
-            should_run = jnp.logical_and(
-                should_run,
-                (ikv + 1) * block_kv - 1 > iq * block_q + diag_offset - window,
-            )
+        # Rows at positions >= c0 see the tile; rows >= its last column see
+        # all of it.
+        lo = lax.div(jnp.maximum(c0 - diag, 0), block_q)
+        full_lo = _cdiv(jnp.maximum(c0 + block_kv - 1 - diag, 0), block_q)
+    if window is not None:
+        # Row r sees column c while c > r - window.
+        last = c0 + block_kv + window - 2 - diag
+        hi = jnp.minimum(
+            jnp.where(last < 0, 0, lax.div(jnp.maximum(last, 0), block_q) + 1),
+            num_q_blocks,
+        )
+        fully = c0 + window - block_q - diag
+        full_hi = jnp.where(
+            fully < 0, 0, lax.div(jnp.maximum(fully, 0), block_q) + 1
+        )
+    if seg_bounds is not None:
+        lo = jnp.maximum(lo, seg_bounds[0])
+        hi = jnp.minimum(hi, seg_bounds[1])
+    a = jnp.minimum(jnp.maximum(full_lo, lo), hi)
+    b = jnp.maximum(a, jnp.minimum(full_hi, hi))
+    return lo, a, b, hi
+
+
+def _dkv_kernel(
+    k_ref, v_ref, q_ref, do_ref, lse_ref, delta_ref, *refs,
+    sm_scale, causal, window, softcap, packed, group, q_len, q_pad, kv_len,
+    block_q, block_kv,
+):
+    if packed:
+        segkv_ref, segq_ref, bounds_ref, dk_ref, dv_ref = refs
     else:
-        should_run = True
-    if seg_live_ref is not None:
-        # Packed block skipping via the prefetched liveness table (block
-        # id-RANGE intersection, same table as the two-pass kernels): fully
-        # cross-document pairs skip all five MMAs, and the caller's clamped
-        # index maps already re-issue no DMA for them. Indices are GLOBAL
-        # (iq0/ikv0 offset the chunked call's local grid).
-        b = pl.program_id(0) // seg_heads
-        should_run = jnp.logical_and(
-            should_run,
-            seg_live_ref[
-                (b * seg_nq + iq0 + iq) * seg_nkv + ikv0 + ikv
-            ] != 0,
+        dk_ref, dv_ref = refs
+    j = pl.program_id(1)
+    c0 = j * block_kv
+    diag = kv_len - q_len
+    k = k_ref[...]
+    v = v_ref[...]
+    seg_kv = segkv_ref[...] if packed else None
+    cols = c0 + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
+
+    def body(i, carry, g, masked):
+        dk, dv = carry
+        start = i * block_q
+        row0 = g * q_pad + start  # row of head g's tile in the group slab
+        q = q_ref[pl.ds(row0, block_q), :]
+        do = do_ref[pl.ds(row0, block_q), :]
+        lse = lse_ref[pl.ds(row0, block_q)]
+        delta = delta_ref[pl.ds(row0, block_q)]
+        ok = None
+        if masked:
+            rows = start + diag + jnp.arange(block_q, dtype=jnp.int32)[:, None]
+            seg_q = segq_ref[pl.ds(start, block_q)] if packed else None
+            # Padded KV columns own discarded rows of dK/dV: no mask needed.
+            ok = _visible(rows, cols, kv_len=kv_len, kv_pad=kv_len,
+                          causal=causal, window=window, seg_q=seg_q,
+                          seg_kv=seg_kv)
+        p, ds = _probs_and_dlogits(q, k, v, do, lse, delta, ok,
+                                   sm_scale=sm_scale, softcap=softcap)
+        dv = dv + pl.dot(p.astype(do.dtype), do, trans_a=True)
+        dk = dk + pl.dot(ds.astype(q.dtype), q, trans_a=True)
+        return dk, dv
+
+    ranges = _q_ranges(
+        c0, block_q=block_q, block_kv=block_kv,
+        num_q_blocks=q_pad // block_q, diag=diag, causal=causal,
+        window=window,
+        seg_bounds=(bounds_ref[0], bounds_ref[1]) if packed else None,
+    )
+
+    def per_head(g, carry):
+        return tile_loop(
+            ranges, functools.partial(body, g=g), carry, packed=packed
         )
 
-    def _fused_body(masked: bool):
-        q = q_ref[...]
-        k = k_ref[...]
-        do = do_ref[...]
-        v = v_ref[...]
-        rawt = jax.lax.dot_general(
-            k, q, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_kv, block_q] (transposed: per-q stats ride lanes)
-        # dP is independent of the score chain: issue its matmul before the
-        # mask/exp2 VPU phase so the MXU works through it.
-        dpt = jax.lax.dot_general(
-            v, do, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_kv, block_q]
-        if softcap_in is not None:
-            tt = jnp.tanh(rawt * softcap_in)
-            s2t = tt * cap_out2
-        else:
-            s2t = rawt * scale2
-
-        if masked and (causal or kv_pad or seg_refs is not None):
-            ok = None
-            shape2d = s2t.shape[1:]
-            kvpos = (
-                jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                + ikv * block_kv
-            )
-            if causal:
-                qpos = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                    + iq * block_q
-                    + diag_offset
-                )
-                ok = kvpos <= qpos
-                if window is not None:
-                    ok = jnp.logical_and(ok, kvpos > qpos - window)
-            if kv_pad:
-                inb = kvpos < kv_len
-                ok = inb if ok is None else jnp.logical_and(ok, inb)
-            if seg_refs is not None:
-                same = seg_refs[1][0, 0][:, None] == seg_refs[0][0, 0][None, :]
-                ok = same if ok is None else jnp.logical_and(ok, same)
-            s2t = jnp.where(ok[None], s2t, MASK_VALUE)
-
-        pt = jnp.exp2(s2t - lse_ref[...])
-        dst = pt * (dpt - delta_ref[...])
-        if softcap_in is not None:
-            dst = dst * (1.0 - tt * tt)
-        dst_c = dst.astype(q.dtype)
-        dq_scr[...] += jax.lax.dot_general(
-            dst_c, k, (((1,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, block_q, d]
-        dk_scr[ikv] += jax.lax.dot_general(
-            dst_c, q, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        dv_scr[ikv] += jax.lax.dot_general(
-            pt.astype(do.dtype), do, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-
-    def _diag_body(w):
-            q = q_ref[...]
-            k = k_ref[...]
-            v = v_ref[...]
-            do = do_ref[...]
-
-            def diag_mmas(i):
-                width = (i + 1) * w
-                qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-                doi = jax.lax.slice_in_dim(do, i * w, (i + 1) * w, axis=1)
-                ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-                vi = jax.lax.slice_in_dim(v, 0, width, axis=1)
-                rawt = jax.lax.dot_general(
-                    ki, qi, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, width, w]
-                # dP is independent of the score chain (see _fused_body).
-                dpt = jax.lax.dot_general(
-                    vi, doi, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                return rawt, dpt, width, qi, doi, ki, vi
-
-            nds = block_q // w
-            if diag_pipe:
-                dpipe = diag_mmas(0)
-            for i in range(nds):
-                if diag_pipe:
-                    rawt, dpt, width, qi, doi, ki, vi = dpipe
-                    if i + 1 < nds:
-                        dpipe = diag_mmas(i + 1)
-                else:
-                    rawt, dpt, width, qi, doi, ki, vi = diag_mmas(i)
-                lse_i = lse_ref[:, :, i * w : (i + 1) * w]
-                delta_i = delta_ref[:, :, i * w : (i + 1) * w]
-                if softcap_in is not None:
-                    tt = jnp.tanh(rawt * softcap_in)
-                    s2t = tt * cap_out2
-                else:
-                    s2t = rawt * scale2
-                # Enable conditions put the diagonal at the block's local
-                # origin: kv row r is live for q sub-col c iff r <= i*w + c.
-                shape2d = s2t.shape[1:]
-                r = jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                c = jax.lax.broadcasted_iota(jnp.int32, shape2d, 1) + i * w
-                s2t = jnp.where((r <= c)[None], s2t, MASK_VALUE)
-                pt = jnp.exp2(s2t - lse_i)
-                dst = pt * (dpt - delta_i)
-                if softcap_in is not None:
-                    dst = dst * (1.0 - tt * tt)
-                dst_c = dst.astype(q.dtype)
-                dq_scr[:, i * w : (i + 1) * w, :] += jax.lax.dot_general(
-                    dst_c, ki, (((1,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                dk_scr[ikv, :, 0:width, :] += jax.lax.dot_general(
-                    dst_c, qi, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-                dv_scr[ikv, :, 0:width, :] += jax.lax.dot_general(
-                    pt.astype(do.dtype), doi, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )
-
-    if diag_subtile:
-        # Multi-block causal diag sub-tiling: the diagonal block pair runs
-        # live-prefix sub-MMAs (all five), interior pairs are mask-free.
-        last_live = ((iq + 1) * block_q - 1 + diag_offset) // block_kv
-
-        @pl.when(ikv < last_live)
-        def _interior():
-            _fused_body(masked=False)
-
-        @pl.when(ikv == last_live)
-        def _diag():
-            _diag_body(diag_subtile)
-    elif packed_dsub and seg_live_ref is not None:
-        # Packed runtime routing (the forward's packed_subtile twin): the
-        # prefetched table carries 0 = dead/above-diagonal, 1 = masked
-        # live (document boundaries, pad blocks), 2 = fully-live
-        # single-document interior (no mask at all), 3 = single-document
-        # diagonal (doc-local diagonal == global diagonal for contiguous
-        # packing, so the live-prefix sub-MMA body applies verbatim).
-        b = pl.program_id(0) // seg_heads
-        val = seg_live_ref[(b * seg_nq + iq0 + iq) * seg_nkv + ikv0 + ikv]
-
-        @pl.when(val == 1)
-        def _generic():
-            _fused_body(masked=True)
-
-        @pl.when(val == 2)
-        def _interior():
-            _fused_body(masked=False)
-
-        @pl.when(val == 3)
-        def _diag():
-            _diag_body(packed_dsub)
-    else:
-        @pl.when(should_run)
-        def _compute():
-            _fused_body(masked=True)
-
-    @pl.when(ikv == num_kv_blocks - 1)
-    def _dq_epilogue():
-        # Chunked calls accumulate the fp32 dq partial IN the epilogue via
-        # an aliased buffer (read block + add + write) instead of a
-        # separate whole-array XLA add per chunk — the adds were ~1 ms of
-        # pure fp32 HBM traffic per 8K backward.
-        if dqin_ref is not None:
-            dq_ref[...] = (
-                dqin_ref[...] + dq_scr[...] * scale
-            ).astype(dq_ref.dtype)
-        else:
-            dq_ref[...] = (dq_scr[...] * scale).astype(dq_ref.dtype)
-
-    @pl.when(jnp.logical_and(iq == num_q_blocks - 1, ikv == num_kv_blocks - 1))
-    def _dkv_epilogue():
-        # Whole-KV outputs, written ONCE at the last grid step of this head
-        # batch. (A per-kv-block output indexed by ikv would be flushed on
-        # every ikv increment — num_q_blocks stale flushes per block before
-        # the real write lands.)
-        for j in range(num_kv_blocks):
-            dk_ref[:, j * block_kv : (j + 1) * block_kv, :] = (
-                dk_scr[j] * scale
-            ).astype(dk_ref.dtype)
-            dv_ref[:, j * block_kv : (j + 1) * block_kv, :] = dv_scr[j].astype(
-                dv_ref.dtype
-            )
+    zeros = jnp.zeros(k.shape, jnp.float32)
+    dk, dv = lax.fori_loop(0, group, per_head, (zeros, zeros))
+    dk_ref[...] = dk.astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
 
 
 def flash_attention_bwd(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    out: jax.Array,
-    lse2: jax.Array,
-    do: jax.Array,
-    *,
+    q, k, v, out, lse2, do, *,
     causal: bool,
     sm_scale: float,
     block_sizes: BlockSizes,
@@ -991,829 +204,129 @@ def flash_attention_bwd(
     softcap: float | None = None,
     segments=None,
 ):
-    """Compute (dq, dk, dv) from the forward residuals.
+    """(dq, dk, dv) of attention given the forward's output and base-2 LSE.
 
-    Args:
-      q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] (GQA: Hq % Hkv == 0).
-      out: forward output [B, Hq, Sq, D].
-      lse2: forward base-2 log-sum-exp residual [B, Hq, Sq], fp32.
-      do: output cotangent, same shape/dtype as out.
-      window: sliding-window size (causal only), matching the forward.
-      softcap: logit soft-cap constant, matching the forward.
-      segments: optional (q_segment_ids [B, Sq], kv_segment_ids [B, Skv])
-        int32 pair (packed sequences), matching the forward.
-
-    Returns:
-      dq [B, Hq, Sq, D], dk and dv [B, Hkv, Skv, D], in the input dtypes.
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; out, do: like q; lse2:
+    [B, Hq, Sq]. Gradients come back in the input dtypes.
     """
     batch, num_q_heads, q_len, head_dim = q.shape
     _, num_kv_heads, kv_len, _ = k.shape
     group = num_q_heads // num_kv_heads
-
-    # Fully-masked q rows (e.g. a packed-segment id absent from the KV side)
-    # carry lse2 = -inf from the forward; the kernels' p = exp2(s2 - lse)
-    # would then be exp2(+inf) = inf, turning dq into NaN and poisoning the
-    # dk/dv accumulators for every kv position sharing the head batch. With
-    # lse = 0 those rows' masked scores give p = exp2(MASK * log2e) = 0, so
-    # dead rows contribute exactly zero gradient — the backward counterpart
-    # of the forward's l == 0 guard (ops/common.py).
-    lse2 = jnp.where(jnp.isneginf(lse2), 0.0, lse2)
-
-    block_q = min(block_sizes.block_q, ceil_to(q_len, 128))
-    block_kv = min(block_sizes.block_kv, ceil_to(kv_len, 128))
+    bs = clamp_to_seq(block_sizes, q_len, kv_len)
+    block_q, block_kv = bs.block_q, bs.block_kv
     q_pad = ceil_to(q_len, block_q)
-    kv_padded = ceil_to(kv_len, block_kv)
-    d_pad = ceil_to(head_dim, 128)
+    kv_pad = ceil_to(kv_len, block_kv)
+    d_pad = max(16, next_pow2(head_dim))
     num_q_blocks = q_pad // block_q
-    num_kv_blocks = kv_padded // block_kv
-    diag_offset = kv_len - q_len
+    num_kv_blocks = kv_pad // block_kv
 
-    # Head-batching (MHA only): the dq grid batches q heads, the dkv grid kv
-    # heads 1:1. GQA's per-head maps (kv_head_index / q_index walking the
-    # group) don't commute with head blocks. Packed sequences DO head-batch
-    # (the forward already does): segment ids are per batch row, so the only
-    # constraint is that a head block never straddles two batch rows.
-    hb = max(block_sizes.block_h, 1)
-    if group > 1:
-        hb = 1
-    if segments is not None:
-        while hb > 1 and num_q_heads % hb:
-            hb //= 2
-    while hb > 1 and (batch * num_q_heads) % hb:
-        hb //= 2
-    # Head-blocks per batch row (used only by the packed/segment index maps,
-    # where hb divides the head count by construction): the kernels' seg
-    # batch index is pid0 // hblocks_*.
-    hblocks_q = num_q_heads // hb
-    hblocks_kv = num_kv_heads // hb
-
-    # delta = rowsum(dO ∘ O), fp32 — one fused elementwise+reduce pass in XLA.
     delta = jnp.sum(
-        do.astype(jnp.float32) * out.astype(jnp.float32), axis=-1
+        out.astype(jnp.float32) * do.astype(jnp.float32), axis=-1
     )  # [B, Hq, Sq]
+    # Rows that saw no key have lse2 = -inf; +inf makes their P exactly 0.
+    lse = jnp.where(jnp.isneginf(lse2), jnp.inf, lse2.astype(jnp.float32))
 
-    qq = q.reshape(batch * num_q_heads, q_len, head_dim)
-    dodo = do.reshape(batch * num_q_heads, q_len, head_dim)
-    kk = k.reshape(batch * num_kv_heads, kv_len, head_dim)
-    vv = v.reshape(batch * num_kv_heads, kv_len, head_dim)
-    lse_f = lse2.reshape(batch * num_q_heads, q_len)
-    delta_f = delta.reshape(batch * num_q_heads, q_len)
+    def rows_of(x, heads, seq, seq_pad):
+        x = x.reshape(batch * heads, seq, head_dim)
+        if seq_pad != seq or d_pad != head_dim:
+            x = jnp.pad(x, ((0, 0), (0, seq_pad - seq), (0, d_pad - head_dim)))
+        return x
 
-    if q_pad != q_len or d_pad != head_dim:
-        pads = ((0, 0), (0, q_pad - q_len), (0, d_pad - head_dim))
-        qq = jnp.pad(qq, pads)
-        dodo = jnp.pad(dodo, pads)  # zero dO rows => padded q rows contribute 0
-    if kv_padded != kv_len or d_pad != head_dim:
-        pads = ((0, 0), (0, kv_padded - kv_len), (0, d_pad - head_dim))
-        kk = jnp.pad(kk, pads)
-        vv = jnp.pad(vv, pads)
-    if q_pad != q_len:
-        lse_f = jnp.pad(lse_f, ((0, 0), (0, q_pad - q_len)))
-        delta_f = jnp.pad(delta_f, ((0, 0), (0, q_pad - q_len)))
-
-    if segments is not None:
-        seg_q, seg_kv = segments
-        # [B, 1, S]: see the forward's Mosaic block-dim note.
-        seg_q = jnp.pad(
-            seg_q.astype(jnp.int32), ((0, 0), (0, q_pad - q_len)),
-            constant_values=-1,
-        )[:, None, :]
-        seg_kv = jnp.pad(
-            seg_kv.astype(jnp.int32), ((0, 0), (0, kv_padded - kv_len)),
-            constant_values=-2,
-        )[:, None, :]
-
-    # Packed-sequence block skipping (the backward twin of the forward's
-    # runtime tri-grid compaction): block id-RANGE intersection marks fully
-    # cross-document (iq, ikv) pairs dead — exact for standard contiguous
-    # packing, conservative for arbitrary ids. The liveness table rides
-    # scalar prefetch: kernels gate their MMAs on it, and the index maps
-    # clamp dead blocks' DMA (dq: kv blocks before the q block's first live
-    # doc; dkv: q blocks after the kv block's last live doc). Grids stay
-    # dense and static — one compile serves every packing layout; dead
-    # steps cost only the ~sub-us grid-step overhead.
-    packed = (
-        segments is not None
-        and (num_q_blocks > 1 or num_kv_blocks > 1)
+    qq = rows_of(q, num_q_heads, q_len, q_pad)
+    dd = rows_of(do.astype(q.dtype), num_q_heads, q_len, q_pad)
+    kk = rows_of(k, num_kv_heads, kv_len, kv_pad)
+    vv = rows_of(v, num_kv_heads, kv_len, kv_pad)
+    # Padded query rows: lse +inf and dO 0, so they contribute nothing.
+    lse = jnp.pad(
+        lse.reshape(batch * num_q_heads, q_len), ((0, 0), (0, q_pad - q_len)),
+        constant_values=jnp.inf,
     )
+    delta = jnp.pad(
+        delta.reshape(batch * num_q_heads, q_len), ((0, 0), (0, q_pad - q_len))
+    )
+
+    packed = segments is not None
     if packed:
-        sq_blk = seg_q[:, 0, :].reshape(batch, num_q_blocks, block_q)
-        skv_blk = seg_kv[:, 0, :].reshape(batch, num_kv_blocks, block_kv)
-        qmin, qmax = sq_blk.min(-1), sq_blk.max(-1)  # [B, nq]
-        kmin, kmax = skv_blk.min(-1), skv_blk.max(-1)  # [B, nkv]
-        seg_live = jnp.logical_and(
-            qmin[:, :, None] <= kmax[:, None, :],
-            kmin[:, None, :] <= qmax[:, :, None],
-        ).astype(jnp.int32)  # [B, nq, nkv]
-        dq_first_live = jnp.argmax(seg_live, axis=2).astype(jnp.int32)
-        dq_last_live = (
-            num_kv_blocks - 1 - jnp.argmax(seg_live[:, :, ::-1], axis=2)
-        ).astype(jnp.int32)  # [B, nq]
-        dkv_first_live = jnp.argmax(seg_live, axis=1).astype(jnp.int32)
-        dkv_last_live = (
-            num_q_blocks - 1 - jnp.argmax(seg_live[:, ::-1, :], axis=1)
-        ).astype(jnp.int32)  # [B, nkv]
-        # Routing table for the packed FUSED kernel (values 0-3; see
-        # _bwd_fused_kernel's packed_dsub branch). Built alongside the
-        # plain live table; only consumed when the fused call's static
-        # alignment allows (pdsub). `below`/`partial` are static causal
-        # block geometry; same_doc is the runtime id-range collapse.
-        if causal:
-            iq_idx = jnp.arange(num_q_blocks)[:, None]
-            ikv_idx = jnp.arange(num_kv_blocks)[None, :]
-            below = (
-                ikv_idx * block_kv
-                <= (iq_idx + 1) * block_q - 1 + diag_offset
-            )  # [nq, nkv] causally-reachable block pairs
-            partial_b = jnp.logical_and(
-                below,
-                (ikv_idx + 1) * block_kv - 1 > iq_idx * block_q + diag_offset,
-            )
-            same_doc = jnp.logical_and(
-                jnp.logical_and(
-                    (qmin == qmax)[:, :, None], (kmin == kmax)[:, None, :]
-                ),
-                qmin[:, :, None] == kmin[:, None, :],
-            )  # [B, nq, nkv]
-            live_b = jnp.logical_and(seg_live != 0, below[None])
-            route = jnp.where(live_b, 1, 0)
-            route = jnp.where(
-                jnp.logical_and(
-                    live_b,
-                    jnp.logical_and(
-                        jnp.logical_not(partial_b)[None], same_doc
-                    ),
-                ),
-                2, route,
-            )
-            route = jnp.where(
-                jnp.logical_and(
-                    live_b, jnp.logical_and(partial_b[None], same_doc)
-                ),
-                3, route,
-            )
-            seg_route = route.astype(jnp.int32).reshape(-1)
-        else:
-            seg_route = seg_live.reshape(-1)
-        # Flat prefetch arrays (flat-with-computed-offset is the paged
-        # kernels' proven on-chip indexing pattern).
-        seg_live = seg_live.reshape(-1)
-        dq_first_live = dq_first_live.reshape(-1)
-        dq_last_live = dq_last_live.reshape(-1)
-        dkv_first_live = dkv_first_live.reshape(-1)
-        dkv_last_live = dkv_last_live.reshape(-1)
+        seg_q, seg_kv = pad_segments(segments, q_len, q_pad, kv_len, kv_pad)
+        q_bounds, kv_bounds = segment_block_bounds(
+            seg_q, seg_kv, block_q, block_kv, q_len, kv_len
+        )
+    statics = dict(
+        sm_scale=sm_scale, causal=causal, window=window, softcap=softcap,
+        packed=packed, q_len=q_len, kv_len=kv_len, block_q=block_q,
+        block_kv=block_kv,
+    )
+    params = triton_params(bs.num_warps, bs.num_stages)
 
-    # Sublane-oriented ([bh, Sq, 1]) for the dq kernel, lane-oriented
-    # ([bh, 1, Sq]) for the transposed dkv kernel — avoids in-kernel relayouts.
-    lse_col = lse_f[:, :, None]
-    delta_col = delta_f[:, :, None]
-    lse_row = lse_f[:, None, :]
-    delta_row = delta_f[:, None, :]
-
-    scale2 = sm_scale * LOG2E
-
-    def kv_head_index(bh):
-        # Only used when hb == 1 (GQA forces hb = 1 above).
-        if group == 1:
-            return bh
+    # ---- dq: one program per (Q head, Q tile), loop over KV tiles ----
+    def kv_row(bh):
         return (bh // num_q_heads) * num_kv_heads + (bh % num_q_heads) // group
 
-    softcap_in = None if softcap is None else sm_scale / softcap
-    cap_out2 = None if softcap is None else softcap * LOG2E
-
-    # Causal single-superblock sub-tiling (mirrors the forward's block_sub):
-    # applies when the whole problem is one (q, kv) block pair.
-    subtile = 0
-    if (
-        causal and window is None
-        and block_sizes.block_sub and num_q_blocks == 1
-        and num_kv_blocks == 1 and block_q > block_sizes.block_sub
-        and block_q % block_sizes.block_sub == 0
-        and block_kv % block_sizes.block_sub == 0
-    ):
-        subtile = block_sizes.block_sub
-    # Multi-block causal diag sub-tiling (the forward's diag_subtile twin,
-    # see _fwd_impl): conditions prove every diagonal block's live region is
-    # a local-origin-aligned prefix (dq) / suffix (dkv) of static width, and
-    # every interior block is fully live (mask-free).
-    diag_subtile = 0
-    if (
-        causal and not subtile and block_sizes.block_sub
-        and window is None and segments is None
-        and kv_padded == kv_len and q_pad == q_len
-        and block_q == block_kv and diag_offset % block_kv == 0
-        # block_sub == block_q: degenerate one-sub-block form (full-width
-        # MMA + additive mask) — see the forward's matching note.
-        and block_q >= block_sizes.block_sub
-        and block_q % block_sizes.block_sub == 0
-        # VMEM gate mirroring the forward's (see _fwd_impl): diag sub-tiles
-        # coexist with the full interior tiles; hb*block_q > 2048 rows
-        # exceeds scoped VMEM.
-        and hb * block_q <= 2048
-    ):
-        diag_subtile = block_sizes.block_sub
-
-    # ---------------- dq ----------------
-    def kv_block_index(iq, ikv):
-        if not causal:
-            return ikv
-        last_live = ((iq + 1) * block_q - 1 + diag_offset) // block_kv
-        idx = jnp.minimum(ikv, last_live)
-        if window is not None:
-            # Blocks entirely below the window issue no DMA either.
-            first_live = jnp.maximum(
-                (iq * block_q + diag_offset - window + 1) // block_kv, 0
-            )
-            idx = jnp.maximum(idx, first_live)
-        return idx
-
-    # ---------------- fused one-pass (dq + dk + dv) ----------------
-    # One call covers a KV RANGE whose fp32 dk/dv accumulators fit VMEM;
-    # longer KV runs the kernel once per chunk (each chunk's dk/dv are
-    # final; fp32 dq partials sum across chunks — every (q, kv) pair is
-    # still score-recomputed exactly once, so the MMA total is unchanged).
-    # Causal chunking also drops the q rows BEFORE a chunk (fully masked
-    # there), so later chunks stream ever-shorter q ranges.
-    fused_chunk = block_sizes.fused_kv_chunk or kv_padded
-    fused_chunk = max(block_kv, (fused_chunk // block_kv) * block_kv)
-    fused_ok = (
-        block_sizes.bwd_fused and group == 1
-        and (
-            fused_chunk >= kv_padded
-            # The chunked form: self-attention alignment only (the q slice
-            # for chunk c starts at the chunk's first kv position), no
-            # sliding window (its live band would need per-chunk q clamps).
-            or (causal and diag_offset == 0 and window is None
-                and q_pad == kv_padded and block_q == block_kv)
-            or not causal
-        )
-        # Packed sequences: causal self-attention with unpadded aligned
-        # square blocks only (the kernel's in-kernel liveness + segment
-        # mask assume the global diagonal IS the packing diagonal).
-        and (
-            segments is None
-            or (causal and diag_offset == 0 and window is None
-                and q_pad == q_len and kv_padded == kv_len
-                and q_pad == kv_padded and block_q == block_kv)
-        )
+    q_tile = pl.BlockSpec((None, block_q, d_pad), lambda bh, i: (bh, i, 0))
+    q_vec = pl.BlockSpec((None, block_q), lambda bh, i: (bh, i))
+    kv_full = pl.BlockSpec(
+        (None, kv_pad, d_pad), lambda bh, i: (kv_row(bh), 0, 0)
     )
-    if fused_ok:
-        whole = fused_chunk >= kv_padded
-
-        def run_fused(q0: int, c0: int, c1: int, dq_dtype, dq_prev=None):
-            """One fused call: q rows [q0, q_pad) x kv rows [c0, c1).
-
-            dq_prev (chunked mode): the FULL [B*H, q_pad, d] fp32 partial
-            from earlier chunks, aliased into this call's full-size dq
-            output — the kernel's epilogue accumulates in place (q blocks
-            before q0 are never touched and pass through), replacing the
-            per-chunk whole-array XLA adds."""
-            nqb = (q_pad - q0) // block_q
-            nkb = (c1 - c0) // block_kv
-            kv_len_loc = min(kv_len - c0, c1 - c0)  # unpadded rows in chunk
-            # Whole-KV call: the standard last-rows-aligned convention.
-            # Chunked call: first-aligned — the causal q slice starts at the
-            # chunk's first kv position (the gate requires diag_offset == 0).
-            off = (kv_len - q_len) if whole else c0 - q0
-            sub = subtile if (
-                q0 == 0 and c0 == 0 and c1 >= kv_padded and segments is None
-            ) else 0
-            dsub = 0
-            if (
-                causal and not sub and block_sizes.block_sub
-                and window is None and segments is None
-                and kv_len_loc == c1 - c0
-                and q_pad == q_len and block_q == block_kv
-                and off % block_kv == 0
-                and block_q >= block_sizes.block_sub
-                and block_q % block_sizes.block_sub == 0
-                and hb * block_q <= 2048
-            ):
-                dsub = block_sizes.block_sub
-            use_prefetch = segments is not None and packed
-            # Packed runtime diag routing: needs the same static alignment
-            # facts as the unpacked diag sub-tiling (square blocks,
-            # origin-aligned diagonal, no padded tails) — then the route
-            # table upgrades fully-live single-doc interiors to mask-free
-            # and single-doc diagonals to the sub-MMA body.
-            pdsub = 0
-            if (
-                use_prefetch and causal and block_sizes.block_sub
-                and off % block_kv == 0 and block_q == block_kv
-                and kv_len_loc == c1 - c0 and q_pad == q_len
-                and block_q >= block_sizes.block_sub
-                and block_q % block_sizes.block_sub == 0
-                and hb * block_q <= 2048
-            ):
-                pdsub = block_sizes.block_sub
-            fused_kernel = functools.partial(
-                _bwd_fused_kernel,
-                causal=causal,
-                scale=sm_scale,
-                scale2=scale2,
-                q_len=q_len - q0,
-                kv_len=kv_len_loc,
-                block_q=block_q,
-                block_kv=block_kv,
-                num_q_blocks=nqb,
-                num_kv_blocks=nkb,
-                kv_pad=kv_len_loc != c1 - c0,
-                window=window,
-                softcap_in=softcap_in,
-                cap_out2=cap_out2,
-                subtile=sub,
-                diag_subtile=dsub,
-                diag_offset=off,
-                seg_heads=hblocks_q,
-                seg_nq=num_q_blocks,
-                seg_nkv=num_kv_blocks,
-                iq0=q0 // block_q,
-                ikv0=c0 // block_kv,
-                packed_dsub=pdsub,
-                diag_pipe=block_sizes.diag_pipe,
-            )
-
-            def kv_idx(iq, ikv, *refs):
-                idx = ikv
-                if causal:
-                    last_live = ((iq + 1) * block_q - 1 + off) // block_kv
-                    idx = jnp.minimum(ikv, last_live)
-                if use_prefetch:
-                    # Clamp into the q block's live-document band (GLOBAL
-                    # table indices) so dead blocks re-issue no DMA — the
-                    # same discipline as the two-pass grids. refs[0] is the
-                    # head-block id (to recover the batch row); refs[1:] are
-                    # (live, first, last).
-                    bq = (refs[0] // hblocks_q) * num_q_blocks + (
-                        q0 // block_q + iq
-                    )
-                    idx = jnp.clip(
-                        idx,
-                        refs[2][bq] - c0 // block_kv,
-                        refs[3][bq] - c0 // block_kv,
-                    )
-                    idx = jnp.clip(idx, 0, nkb - 1)
-                return idx
-
-            q_spec_f = pl.BlockSpec(
-                (hb, block_q, d_pad),
-                lambda bh, iq, ikv, *r: (bh, q0 // block_q + iq, 0),
-            )
-            kv_spec_f = pl.BlockSpec(
-                (hb, block_kv, d_pad),
-                lambda bh, iq, ikv, *r: (
-                    bh, c0 // block_kv + kv_idx(iq, ikv, bh, *r), 0
-                ),
-            )
-            stat_spec_f = pl.BlockSpec(
-                (hb, 1, block_q),
-                lambda bh, iq, ikv, *r: (bh, 0, q0 // block_q + iq),
-            )
-            in_specs_f = [
-                q_spec_f, kv_spec_f, kv_spec_f, q_spec_f,
-                stat_spec_f, stat_spec_f,
-            ]
-            inputs_f = [qq, kk, vv, dodo, lse_row, delta_row]
-            if segments is not None:
-                in_specs_f += [
-                    pl.BlockSpec(
-                        (1, 1, block_q),
-                        lambda bh, iq, ikv, *r: (
-                            bh // hblocks_q, 0, q0 // block_q + iq
-                        ),
-                    ),
-                    pl.BlockSpec(
-                        (1, 1, block_kv),
-                        lambda bh, iq, ikv, *r: (
-                            bh // hblocks_q, 0,
-                            c0 // block_kv + kv_idx(iq, ikv, bh, *r),
-                        ),
-                    ),
-                ]
-                inputs_f += [seg_q, seg_kv]
-            base = fused_kernel
-            has_seg = segments is not None
-            has_dqin = dq_prev is not None
-
-            def fused_kernel(*refs):
-                # Ref order: [3 prefetch (use_prefetch only)], q, k, v, do,
-                # lse, delta, [seg_q, seg_kv], [dqin], dq, dk, dv, *scratch.
-                i = 0
-                live_r = None
-                if use_prefetch:
-                    live_r = refs[0]
-                    i = 3
-                q_r, k_r, v_r, do_r, lse_r, d_r = refs[i : i + 6]
-                i += 6
-                seg_refs = None
-                if has_seg:
-                    seg_refs = (refs[i], refs[i + 1])
-                    i += 2
-                dqin_r = None
-                if has_dqin:
-                    dqin_r = refs[i]
-                    i += 1
-                dq_r, dk_r, dv_r = refs[i : i + 3]
-                scr = refs[i + 3 :]
-                base(
-                    q_r, k_r, v_r, do_r, lse_r, d_r,
-                    dq_r, dk_r, dv_r, *scr,
-                    seg_refs=seg_refs, seg_live_ref=live_r, dqin_ref=dqin_r,
-                )
-            dq_out_spec = (
-                pl.BlockSpec(
-                    (hb, block_q, d_pad),
-                    lambda bh, iq, ikv, *r: (bh, q0 // block_q + iq, 0),
-                )
-                if dq_prev is not None
-                else pl.BlockSpec(
-                    (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-                )
-            )
-            if dq_prev is not None:
-                in_specs_f = in_specs_f + [dq_out_spec]
-                inputs_f = inputs_f + [dq_prev]
-            out_specs_f = [
-                dq_out_spec,
-                pl.BlockSpec(
-                    (hb, c1 - c0, d_pad), lambda bh, iq, ikv, *r: (bh, 0, 0)
-                ),
-                pl.BlockSpec(
-                    (hb, c1 - c0, d_pad), lambda bh, iq, ikv, *r: (bh, 0, 0)
-                ),
-            ]
-            out_shape_f = [
-                jax.ShapeDtypeStruct(
-                    (
-                        (batch * num_q_heads, q_pad, d_pad)
-                        if dq_prev is not None
-                        else (batch * num_q_heads, q_pad - q0, d_pad)
-                    ),
-                    dq_dtype,
-                ),
-                jax.ShapeDtypeStruct(
-                    (batch * num_kv_heads, c1 - c0, d_pad), k.dtype
-                ),
-                jax.ShapeDtypeStruct(
-                    (batch * num_kv_heads, c1 - c0, d_pad), v.dtype
-                ),
-            ]
-            scratch_f = [
-                pltpu.VMEM((hb, block_q, d_pad), jnp.float32),
-                pltpu.VMEM((nkb, hb, block_kv, d_pad), jnp.float32),
-                pltpu.VMEM((nkb, hb, block_kv, d_pad), jnp.float32),
-            ]
-            semantics = pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-            )
-            aliases = {}
-            if dq_prev is not None:
-                # dqin is the LAST input; flattened indices count the
-                # prefetch refs in the prefetch variant.
-                aliases = {
-                    (3 if use_prefetch else 0) + len(inputs_f) - 1: 0
-                }
-            if use_prefetch:
-                table = seg_route if pdsub else seg_live
-                return pl.pallas_call(
-                    fused_kernel,
-                    grid_spec=pltpu.PrefetchScalarGridSpec(
-                        num_scalar_prefetch=3,
-                        grid=(batch * num_q_heads // hb, nqb, nkb),
-                        in_specs=in_specs_f,
-                        out_specs=out_specs_f,
-                        scratch_shapes=scratch_f,
-                    ),
-                    out_shape=out_shape_f,
-                    input_output_aliases=aliases,
-                    compiler_params=semantics,
-                    interpret=interpret,
-                )(table, dq_first_live, dq_last_live, *inputs_f)
-            return pl.pallas_call(
-                fused_kernel,
-                grid=(batch * num_q_heads // hb, nqb, nkb),
-                in_specs=in_specs_f,
-                out_specs=out_specs_f,
-                out_shape=out_shape_f,
-                scratch_shapes=scratch_f,
-                input_output_aliases=aliases,
-                compiler_params=semantics,
-                interpret=interpret,
-            )(*inputs_f)
-
-        if fused_chunk >= kv_padded:
-            dq, dk, dv = run_fused(0, 0, kv_padded, q.dtype)
-        else:
-            # Chunked: fp32 dq partial sum (bf16 partial rounding would
-            # stack across chunks), dk/dv chunks concatenate.
-            dq_acc = jnp.zeros(
-                (batch * num_q_heads, q_pad, d_pad), jnp.float32
-            )
-            dk_parts, dv_parts = [], []
-            for c0 in range(0, kv_padded, fused_chunk):
-                c1 = min(c0 + fused_chunk, kv_padded)
-                q0 = c0 if causal else 0
-                dq_acc, dk_c, dv_c = run_fused(
-                    q0, c0, c1, jnp.float32, dq_prev=dq_acc
-                )
-                dk_parts.append(dk_c)
-                dv_parts.append(dv_c)
-            dq = dq_acc.astype(q.dtype)
-            dk = jnp.concatenate(dk_parts, axis=1)
-            dv = jnp.concatenate(dv_parts, axis=1)
-        dq = dq[:, :q_len, :head_dim].reshape(
-            batch, num_q_heads, q_len, head_dim
-        )
-        dk = dk[:, :kv_len, :head_dim].reshape(
-            batch, num_kv_heads, kv_len, head_dim
-        )
-        dv = dv[:, :kv_len, :head_dim].reshape(
-            batch, num_kv_heads, kv_len, head_dim
-        )
-        return dq, dk, dv
-
-    dq_base = functools.partial(
-        _bwd_dq_kernel,
-        causal=causal,
-        scale=sm_scale,
-        scale2=scale2,
-        q_len=q_len,
-        kv_len=kv_len,
-        block_q=block_q,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        kv_pad=kv_padded != kv_len,
-        window=window,
-        softcap_in=softcap_in,
-        cap_out2=cap_out2,
-        subtile=subtile,
-        diag_subtile=diag_subtile,
-    )
-    def dq_kv_block(bh, iq, ikv, *refs):
-        # `refs` = (live, first, last) scalar-prefetch refs in packed mode:
-        # clamp kv blocks outside the q block's live-document band so the
-        # dead prefix/suffix re-issues no DMA (compute is gated in-kernel).
-        idx = kv_block_index(iq, ikv)
-        if packed:
-            bq = (bh // hblocks_q) * num_q_blocks + iq
-            idx = jnp.clip(idx, refs[1][bq], refs[2][bq])
-        return idx
-
-    dq_in_specs = [
-        pl.BlockSpec(
-            (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-        ),
-        pl.BlockSpec(
-            (hb, block_kv, d_pad),
-            lambda bh, iq, ikv, *r: (
-                (bh if hb > 1 else kv_head_index(bh)),
-                dq_kv_block(bh, iq, ikv, *r),
-                0,
-            ),
-        ),
-        pl.BlockSpec(
-            (hb, block_kv, d_pad),
-            lambda bh, iq, ikv, *r: (
-                (bh if hb > 1 else kv_head_index(bh)),
-                dq_kv_block(bh, iq, ikv, *r),
-                0,
-            ),
-        ),
-        pl.BlockSpec(
-            (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-        ),
-        pl.BlockSpec((hb, block_q, 1), lambda bh, iq, ikv, *r: (bh, iq, 0)),
-        pl.BlockSpec((hb, block_q, 1), lambda bh, iq, ikv, *r: (bh, iq, 0)),
-    ]
-    dq_inputs = [qq, kk, vv, dodo, lse_col, delta_col]
-    if segments is None:
-        dq_kernel = dq_base
-    else:
-        dq_in_specs += [
-            pl.BlockSpec(
-                (1, 1, block_q),
-                lambda bh, iq, ikv, *r: (bh // hblocks_q, 0, iq),
-            ),
-            pl.BlockSpec(
-                (1, 1, block_kv),
-                lambda bh, iq, ikv, *r: (
-                    bh // hblocks_q, 0, dq_kv_block(bh, iq, ikv, *r)
-                ),
-            ),
-        ]
-        dq_inputs += [seg_q, seg_kv]
-
-        if packed:
-            def dq_kernel(
-                live_r, first_r, last_r, q_r, k_r, v_r, do_r, lse_r, d_r,
-                sq_r, skv_r, dq_r, acc,
-            ):
-                dq_base(
-                    q_r, k_r, v_r, do_r, lse_r, d_r, dq_r, acc,
-                    seg_refs=(sq_r, skv_r),
-                    seg_live_ref=live_r, seg_heads=hblocks_q,
-                    seg_nq=num_q_blocks, seg_nkv=num_kv_blocks,
-                )
-        else:
-            def dq_kernel(
-                q_r, k_r, v_r, do_r, lse_r, d_r, sq_r, skv_r, dq_r, acc
-            ):
-                dq_base(
-                    q_r, k_r, v_r, do_r, lse_r, d_r, dq_r, acc,
-                    seg_refs=(sq_r, skv_r),
-                )
-
-    dq_out_spec = pl.BlockSpec(
-        (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-    )
-    dq_out_shape = jax.ShapeDtypeStruct(
-        (batch * num_q_heads, q_pad, d_pad), q.dtype
-    )
-    dq_grid = (batch * num_q_heads // hb, num_q_blocks, num_kv_blocks)
-    dq_scratch = [pltpu.VMEM((hb, block_q, d_pad), jnp.float32)]
-    dq_params = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "parallel", "arbitrary"),
-    )
+    in_specs = [q_tile, q_tile, q_vec, q_vec, kv_full, kv_full]
+    inputs = [qq, dd, lse, delta, kk, vv]
     if packed:
-        dq = pl.pallas_call(
-            dq_kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=dq_grid,
-                in_specs=dq_in_specs,
-                out_specs=dq_out_spec,
-                scratch_shapes=dq_scratch,
-            ),
-            out_shape=dq_out_shape,
-            compiler_params=dq_params,
-            interpret=interpret,
-        )(seg_live, dq_first_live, dq_last_live, *dq_inputs)
-    else:
-        dq = pl.pallas_call(
-            dq_kernel,
-            grid=dq_grid,
-            in_specs=dq_in_specs,
-            out_specs=dq_out_spec,
-            out_shape=dq_out_shape,
-            scratch_shapes=dq_scratch,
-            compiler_params=dq_params,
-            interpret=interpret,
-        )(*dq_inputs)
-
-    # ---------------- dk / dv ----------------
-    num_steps = group * num_q_blocks
-
-    def q_index(bkv, t):
-        # hb > 1 implies group == 1, where q-head blocks match kv-head
-        # blocks 1:1; the general walk applies only unbatched.
-        if hb > 1:
-            return bkv
-        b = bkv // num_kv_heads
-        h = bkv % num_kv_heads
-        g = t // num_q_blocks
-        return b * num_q_heads + h * group + g
-
-    def q_block_index(ikv, t):
-        iq = t % num_q_blocks
-        if not causal:
-            return iq
-        first_live = jnp.maximum((ikv * block_kv - diag_offset) // block_q, 0)
-        iq = jnp.maximum(iq, first_live)
-        if window is not None:
-            # Q rows beyond the window of this kv block's last column are
-            # dead: clamp so their blocks issue no DMA.
-            last_live = jnp.minimum(
-                ((ikv + 1) * block_kv - 1 + window - 1 - diag_offset)
-                // block_q,
-                num_q_blocks - 1,
-            )
-            iq = jnp.minimum(iq, jnp.maximum(last_live, 0))
-        return iq
-
-    def dkv_q_block(bkv, ikv, t, *refs):
-        # `refs` = (live, first, last) scalar-prefetch refs in packed mode:
-        # clamp q blocks outside the kv block's live-document band so the
-        # dead prefix/suffix re-issues no DMA (compute is gated in-kernel).
-        iq = q_block_index(ikv, t)
-        if packed:
-            bk = (bkv // hblocks_kv) * num_kv_blocks + ikv
-            iq = jnp.clip(iq, refs[1][bk], refs[2][bk])
-        return iq
-
-    q_spec = pl.BlockSpec(
-        (hb, block_q, d_pad),
-        lambda bkv, ikv, t, *r: (
-            q_index(bkv, t), dkv_q_block(bkv, ikv, t, *r), 0
-        ),
-    )
-    stat_spec = pl.BlockSpec(
-        (hb, 1, block_q),
-        lambda bkv, ikv, t, *r: (
-            q_index(bkv, t), 0, dkv_q_block(bkv, ikv, t, *r)
-        ),
-    )
-    kv_spec = pl.BlockSpec(
-        (hb, block_kv, d_pad), lambda bkv, ikv, t, *r: (bkv, ikv, 0)
-    )
-
-    dkv_base = functools.partial(
-        _bwd_dkv_kernel,
-        causal=causal,
-        scale=sm_scale,
-        scale2=scale2,
-        q_len=q_len,
-        kv_len=kv_len,
-        block_q=block_q,
-        block_kv=block_kv,
-        num_q_blocks=num_q_blocks,
-        num_steps=num_steps,
-        kv_pad=kv_padded != kv_len,
-        window=window,
-        softcap_in=softcap_in,
-        cap_out2=cap_out2,
-        subtile=subtile,
-        diag_subtile=diag_subtile,
-    )
-    dkv_in_specs = [q_spec, kv_spec, kv_spec, q_spec, stat_spec, stat_spec]
-    dkv_inputs = [qq, kk, vv, dodo, lse_row, delta_row]
-    if segments is None:
-        dkv_kernel = dkv_base
-    else:
-        dkv_in_specs += [
-            pl.BlockSpec(
-                (1, 1, block_q),
-                lambda bkv, ikv, t, *r: (
-                    bkv // hblocks_kv, 0, dkv_q_block(bkv, ikv, t, *r)
-                ),
-            ),
-            pl.BlockSpec(
-                (1, 1, block_kv),
-                lambda bkv, ikv, t, *r: (bkv // hblocks_kv, 0, ikv),
-            ),
+        b_of = lambda bh: bh // num_q_heads  # noqa: E731
+        in_specs += [
+            pl.BlockSpec((None, block_q), lambda bh, i: (b_of(bh), i)),
+            pl.BlockSpec((None, kv_pad), lambda bh, i: (b_of(bh), 0)),
+            pl.BlockSpec((None, None, 2), lambda bh, i: (b_of(bh), i, 0)),
         ]
-        dkv_inputs += [seg_q, seg_kv]
+        inputs += [seg_q, seg_kv, q_bounds]
+    with jax.named_scope("flash_attention_bwd_dq"):
+        dq = pl.pallas_call(
+            functools.partial(_dq_kernel, kv_pad=kv_pad, **statics),
+            grid=(batch * num_q_heads, num_q_blocks),
+            in_specs=in_specs,
+            out_specs=q_tile,
+            out_shape=jax.ShapeDtypeStruct(qq.shape, q.dtype),
+            compiler_params=params,
+            interpret=interpret,
+            backend="triton",
+            name="flash_attention_bwd_dq",
+        )(*inputs)
 
-        if packed:
-            def dkv_kernel(
-                live_r, first_r, last_r, q_r, k_r, v_r, do_r, lse_r, d_r,
-                sq_r, skv_r, dk_r, dv_r, dks, dvs,
-            ):
-                dkv_base(
-                    q_r, k_r, v_r, do_r, lse_r, d_r, dk_r, dv_r, dks, dvs,
-                    seg_refs=(sq_r, skv_r),
-                    seg_live_ref=live_r, seg_heads=hblocks_kv,
-                    seg_nq=num_q_blocks, seg_nkv=num_kv_blocks,
-                )
-        else:
-            def dkv_kernel(
-                q_r, k_r, v_r, do_r, lse_r, d_r, sq_r, skv_r,
-                dk_r, dv_r, dks, dvs,
-            ):
-                dkv_base(
-                    q_r, k_r, v_r, do_r, lse_r, d_r, dk_r, dv_r, dks, dvs,
-                    seg_refs=(sq_r, skv_r),
-                )
-
-    dkv_grid = (batch * num_kv_heads // hb, num_kv_blocks, num_steps)
-    dkv_out_specs = [kv_spec, kv_spec]
-    dkv_out_shapes = [
-        jax.ShapeDtypeStruct((batch * num_kv_heads, kv_padded, d_pad), k.dtype),
-        jax.ShapeDtypeStruct((batch * num_kv_heads, kv_padded, d_pad), v.dtype),
-    ]
-    dkv_scratch = [
-        pltpu.VMEM((hb, block_kv, d_pad), jnp.float32),
-        pltpu.VMEM((hb, block_kv, d_pad), jnp.float32),
-    ]
-    dkv_params = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "parallel", "arbitrary"),
-    )
+    # ---- dkv: one program per (KV head, KV tile), loop over Q tiles of
+    # every Q head of the group. [B*Hq, Sq_pad, D] -> [B*Hkv, G*Sq_pad, D]
+    # is free: a group's heads are adjacent. ----
+    qg = qq.reshape(batch * num_kv_heads, group * q_pad, d_pad)
+    dg = dd.reshape(batch * num_kv_heads, group * q_pad, d_pad)
+    lse_g = lse.reshape(batch * num_kv_heads, group * q_pad)
+    delta_g = delta.reshape(batch * num_kv_heads, group * q_pad)
+    kv_tile = pl.BlockSpec((None, block_kv, d_pad), lambda bh, j: (bh, j, 0))
+    slab = pl.BlockSpec((None, group * q_pad, d_pad), lambda bh, j: (bh, 0, 0))
+    slab_vec = pl.BlockSpec((None, group * q_pad), lambda bh, j: (bh, 0))
+    in_specs = [kv_tile, kv_tile, slab, slab, slab_vec, slab_vec]
+    inputs = [kk, vv, qg, dg, lse_g, delta_g]
     if packed:
+        b_of = lambda bh: bh // num_kv_heads  # noqa: E731
+        in_specs += [
+            pl.BlockSpec((None, block_kv), lambda bh, j: (b_of(bh), j)),
+            pl.BlockSpec((None, q_pad), lambda bh, j: (b_of(bh), 0)),
+            pl.BlockSpec((None, None, 2), lambda bh, j: (b_of(bh), j, 0)),
+        ]
+        inputs += [seg_kv, seg_q, kv_bounds]
+    with jax.named_scope("flash_attention_bwd_dkv"):
         dk, dv = pl.pallas_call(
-            dkv_kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=dkv_grid,
-                in_specs=dkv_in_specs,
-                out_specs=dkv_out_specs,
-                scratch_shapes=dkv_scratch,
-            ),
-            out_shape=dkv_out_shapes,
-            compiler_params=dkv_params,
+            functools.partial(_dkv_kernel, group=group, q_pad=q_pad, **statics),
+            grid=(batch * num_kv_heads, num_kv_blocks),
+            in_specs=in_specs,
+            out_specs=[kv_tile, kv_tile],
+            out_shape=[
+                jax.ShapeDtypeStruct(kk.shape, k.dtype),
+                jax.ShapeDtypeStruct(vv.shape, v.dtype),
+            ],
+            compiler_params=params,
             interpret=interpret,
-        )(seg_live, dkv_first_live, dkv_last_live, *dkv_inputs)
-    else:
-        dk, dv = pl.pallas_call(
-            dkv_kernel,
-            grid=dkv_grid,
-            in_specs=dkv_in_specs,
-            out_specs=dkv_out_specs,
-            out_shape=dkv_out_shapes,
-            scratch_shapes=dkv_scratch,
-            compiler_params=dkv_params,
-            interpret=interpret,
-        )(*dkv_inputs)
+            backend="triton",
+            name="flash_attention_bwd_dkv",
+        )(*inputs)
 
-    dq = dq[:, :q_len, :head_dim].reshape(batch, num_q_heads, q_len, head_dim)
-    dk = dk[:, :kv_len, :head_dim].reshape(batch, num_kv_heads, kv_len, head_dim)
-    dv = dv[:, :kv_len, :head_dim].reshape(batch, num_kv_heads, kv_len, head_dim)
+    dq = dq[:, :q_len, :head_dim].reshape(q.shape)
+    dk = dk[:, :kv_len, :head_dim].reshape(k.shape)
+    dv = dv[:, :kv_len, :head_dim].reshape(v.shape)
     return dq, dk, dv

@@ -1,198 +1,67 @@
-"""Shared numerics constants + helpers for the attention kernels.
+"""Shared numerics constants and the Pallas launch policy for the kernels.
 
 Numerics policy (SURVEY.md §5): fp32 accumulators, exp2-domain softmax with
 log2(e) folded into the scale (the reference folds it the same way,
 flash_attention.cu:239), and a large finite negative mask value rather than
 -inf (the reference uses -10000, flash_attention.cu:238 — ours is fp32-scaled
 so exp2 of it underflows to exactly 0).
+
+Launch policy: every Pallas kernel in this package is written for the GPU's
+Triton route (``backend="triton"``). Interpret mode (the Pallas interpreter on
+the host) runs only when asked for — per call (``interpret=True``) or
+process-wide through :func:`set_interpret_default`, which the test suite turns
+on. A kernel called on any other backend without that request raises.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
-# Floor for the running row max: a fully-masked row's max is MASK_VALUE*scale
-# (~-3e37); computing exp2(s*scale - m) there subtracts two ~1e37 values whose
-# fma-fused rounding residual can be +-1e28 — and exp2(+1e28) = inf -> NaN
-# downstream. Clamping m to this floor (far above any masked score, far below
-# any real logit) makes masked rows underflow to exactly 0 instead.
+# Floor for the running row max: a fully-masked row's max is MASK_VALUE
+# (~-2e38); computing exp2(s - m) there subtracts two huge values whose
+# rounding residual can be large — and exp2 of a positive residual is inf ->
+# NaN downstream. Starting m at this floor (far above any masked score, far
+# below any real logit) makes masked rows underflow to exactly 0 instead.
 M_FLOOR = -1e30
-LANES = 128
+
+_INTERPRET_DEFAULT = False
 
 
 def ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def upcast_kv_payload(x, target_dtype):
-    """Cast a KV payload tile to the compute dtype, fast-pathing fp8.
-
-    v5e has no native fp8, so ``astype`` lowers to slow emulated conversion
-    (~4x the whole decode step). Both fp8 formats embed losslessly in
-    bf16/fp16 bit layouts, so widen with integer VPU ops instead:
-
-      * e5m2 is exactly fp16's top byte: widen, shift left 8, bitcast fp16.
-      * e4m3 (bias 7) -> bf16 (bias 127): place exp+mant at bit 4, rebias by
-        adding (127-7)<<7. Denormals flush to zero (quantized payloads put
-        ~absmax-scaled values well above the denormal range; the flush error
-        is < 0.4% of one quantization step).
-
-    NaN payloads are not preserved — acceptable for quantized caches (the
-    quantizer never emits them).
-
-    See :func:`upcast_kv_payload_expfold` for the cheaper variant used by the
-    decode kernels (requires folding a 2**k factor into the dequant scales).
-    """
-    import jax.numpy as _jnp
-
-    if x.dtype == target_dtype:
-        return x
-    if x.dtype in (_jnp.float8_e4m3fn, _jnp.float8_e5m2):
-        # All arithmetic in int32 (Mosaic vectorizes 32-bit shifts natively;
-        # 16-bit shifts are unsupported), assembling the fp32 bit pattern.
-        from jax.experimental.pallas import tpu as _pltpu
-
-        u = _pltpu.bitcast(x, _jnp.uint8).astype(_jnp.int32)
-        sign = (u & 0x80) << 24
-        mag = u & 0x7F
-        if x.dtype == _jnp.float8_e4m3fn:
-            # exp4:mant3 -> fp32 exp at bit 23 (rebias 7 -> 127), mant3 at 20.
-            bits = (mag << 20) + (120 << 23)
-            denorm = mag < 8  # exp4 == 0
-        else:
-            # exp5:mant2 -> fp32 exp at bit 23 (rebias 15 -> 127), mant2 at 21.
-            bits = (mag << 21) + (112 << 23)
-            denorm = mag < 4  # exp5 == 0
-        bits = _jnp.where(denorm, 0, bits) | sign
-        f32 = _pltpu.bitcast(bits, _jnp.float32)
-        return f32.astype(target_dtype)
-    return x.astype(target_dtype)
+def next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def upcast_kv_payload_packed(x):
-    """fp8 widen, SIMD-within-register: [R, 128] -> two bf16 [R/2, 128] halves.
-
-    The expfold widen (:func:`upcast_kv_payload_expfold`) still pays a u8->i32
-    widening relayout and an fp32->bf16 pack per element. This variant never
-    leaves the packed register file: bitcast the fp8 tile to i32 (4 payload
-    bytes per lane), assemble TWO bf16 bit patterns per i32 lane with ~6
-    integer VPU ops, and bitcast straight to bf16 — measured 33.5k -> 39.9k
-    tok/s (e4m3) on the v5e decode bench.
-
-    Bitcast packing semantics (probe-verified on v5e AND in interpret mode,
-    identical): fp8->i32 packs rows (4r..4r+3) as the little-endian bytes of
-    i32 row r; i32->bf16 unpacks i32 row r into bf16 rows (2r, 2r+1) =
-    (low16, high16). The net row order is therefore the **pair-split**
-    permutation: half0 row r = position 4*(r//2) + (r%2), half1 = that + 2 —
-    i.e. half0 carries positions p%4 in {0,1} ascending, half1 p%4 in {2,3}.
-    The split is the same for any R%4==0 tile (block-size independent), so
-    callers fix up only (a) per-position mask iotas (pos = 2*w - (w&1) + 2*h)
-    and (b) per-position scale rows (pair-split them outside the kernel);
-    the PV product needs no fixup at all because P columns and V rows carry
-    the identical permutation.
-
-    Like expfold, the exponent rebias is folded out: multiply ``factor`` into
-    the dequant scales. Returns ``(half0, half1, factor)``.
-    """
-    import jax.numpy as _jnp
-    from jax.experimental.pallas import tpu as _pltpu
-
-    if x.dtype == _jnp.float8_e4m3fn:
-        sh, factor = 4, 2.0 ** 120  # mant3 -> bits 4-6, e4 -> low exp bits
-    elif x.dtype == _jnp.float8_e5m2:
-        sh, factor = 5, 2.0 ** 112  # mant2 -> bits 5-6, e5 -> low exp bits
-    else:
-        raise ValueError(f"packed widen requires fp8 payload, got {x.dtype}")
-    xi = _pltpu.bitcast(x, _jnp.int32)  # [R/4, 128]
-    hi = xi >> 8  # arith shift garbage in bits 24-31 never selected below
-    y0 = ((xi & 0x007F007F) << sh) | ((xi & 0x00800080) << 8)
-    y1 = ((hi & 0x007F007F) << sh) | ((hi & 0x00800080) << 8)
-    return (
-        _pltpu.bitcast(y0, _jnp.bfloat16),
-        _pltpu.bitcast(y1, _jnp.bfloat16),
-        factor,
-    )
+def set_interpret_default(enabled: bool) -> None:
+    """Run every Pallas kernel through the interpreter unless a call says
+    otherwise (tests and CPU rehearsals of the multi-device paths)."""
+    global _INTERPRET_DEFAULT
+    _INTERPRET_DEFAULT = bool(enabled)
 
 
-def packed_split_order(interpret: bool) -> str:
-    """Row order produced by :func:`upcast_kv_payload_packed` on a platform.
-
-    The net order is fixed by the platform's bitcast packing, probe-verified:
-
-      * Mosaic/TPU: ``"pair"`` — half h row w = position 2*w - (w&1) + 2*h
-        (half0 = positions p%4 in {0,1} ascending, half1 = {2,3}).
-      * Pallas interpret (CPU): ``"evenodd"`` — half h row w = position
-        2*w + h.
-
-    Both are block-size independent for R%4==0 tiles. Kernels must key their
-    position iotas and scale splits on this; the unit test
-    (test_decode.py::test_packed_widen_row_order) pins the interpret order,
-    and the on-TPU equivalence suites pin the Mosaic order.
-    """
-    return "evenodd" if interpret else "pair"
+def resolve_interpret(interpret: bool | None) -> bool:
+    """The one place a kernel decides between the GPU and the interpreter."""
+    if interpret is None:
+        interpret = _INTERPRET_DEFAULT
+    if not interpret:
+        backend = jax.default_backend()
+        if backend != "gpu":
+            raise RuntimeError(
+                f"Pallas kernels here compile for the GPU only, but the JAX "
+                f"backend is {backend!r}; pass interpret=True or call "
+                f"flash_attention_tpu.ops.common.set_interpret_default(True) "
+                f"to run them in the Pallas interpreter"
+            )
+    return bool(interpret)
 
 
-def packed_pos(w, half: int, order: str):
-    """Position of half ``half`` row ``w`` under a packed split order."""
-    if order == "pair":
-        return 2 * w - (w & 1) + 2 * half
-    return 2 * w + half
+def triton_params(num_warps: int, num_stages: int):
+    from jax.experimental.pallas import triton as pltriton
 
-
-def split_scales_lanes(s, order: str):
-    """Split a lane-oriented per-position row [..., 1, S] into the two
-    halves matching :func:`upcast_kv_payload_packed`'s row order.
-
-    Runs OUTSIDE the kernel (XLA reshape+slice, ~3.5% of decode step time
-    when done per call; callers holding a stable cache can hoist it).
-    """
-    *lead, one, S = s.shape
-    if order == "pair":
-        r = s.reshape(*lead, S // 4, 4)
-        return (
-            r[..., :2].reshape(*lead, one, S // 2),
-            r[..., 2:].reshape(*lead, one, S // 2),
-        )
-    r = s.reshape(*lead, S // 2, 2)
-    return (
-        r[..., 0].reshape(*lead, one, S // 2),
-        r[..., 1].reshape(*lead, one, S // 2),
-    )
-
-
-def upcast_kv_payload_expfold(x, target_dtype):
-    """fp8 widen with the exponent rebias FOLDED OUT: returns (values, 2**k).
-
-    Returns ``(y, factor)`` with ``y == true_value / factor`` elementwise —
-    the caller must multiply ``factor`` into its dequant scales (one VPU op
-    on a tiny scale tile, vs a full-tile add here). Skipping the rebias also
-    removes the denormal select: without the +rebias, an fp8 denormal
-    assembles to an fp32/bf16 denormal, which the TPU either flushes to the
-    exact zero the masked path wants or (if kept) reconstructs the correct
-    tiny value after the scale multiply — both acceptable, no compare+where.
-
-    For non-fp8 payloads this is plain astype with factor 1.
-    """
-    import jax.numpy as _jnp
-
-    if x.dtype == target_dtype:
-        return x, 1.0
-    if x.dtype in (_jnp.float8_e4m3fn, _jnp.float8_e5m2):
-        from jax.experimental.pallas import tpu as _pltpu
-
-        u = _pltpu.bitcast(x, _jnp.uint8).astype(_jnp.int32)
-        sign = (u & 0x80) << 24
-        mag = u & 0x7F
-        if x.dtype == _jnp.float8_e4m3fn:
-            # Raw e4 lands in the fp32 exponent field unrebias'd: the
-            # assembled value is true * 2**-120 (bias 7 vs 127).
-            bits = (mag << 20) | sign
-            factor = 2.0 ** 120
-        else:
-            bits = (mag << 21) | sign
-            factor = 2.0 ** 112
-        f32 = _pltpu.bitcast(bits, _jnp.float32)
-        return f32.astype(target_dtype), factor
-    return x.astype(target_dtype), 1.0
+    return pltriton.CompilerParams(num_warps=num_warps, num_stages=num_stages)

@@ -7,21 +7,25 @@ could emit per-split (O, m, l) partials and a merge kernel existed, but the
 dispatcher never used them (SURVEY.md §2 "IS_SPLITK always false"). Here the
 same math is live:
 
-  * the per-chip kernel streams KV blocks with online-softmax state and can
-    emit the base-2 LSE residual,
+  * :func:`decode_attention` attends one query row per head over the cache
+    and can emit the base-2 LSE residual,
   * :func:`flash_attention_tpu.ops.merge.merge_partial_attention` is the
     reference's merge math (exp2-domain weights, flash_attention.cu:584-592),
   * :func:`decode_attention_split` = flash-decoding (KV-range splits merged
-    on-chip); the identical merge combines cross-chip partials for
+    with the LSE); the identical merge combines cross-device partials for
     sequence-parallel serving.
 
-GQA grouping uses the "commute the sum" trick (q heads sharing a KV head form
-the M rows of one MXU matmul) — the TPU equivalent of the reference packing
-16 Q rows per warp (flash_attention.cu:114-117).
+The dense cache is contiguous, so the decode step is plain ``jnp`` in one
+jit: XLA fuses the dequantization into the two GEMV-shaped contractions and
+the masked exp2 softmax between them. GQA grouping uses the "commute the sum"
+trick (q heads sharing a KV head are the rows of one contraction) — the
+equivalent of the reference packing 16 Q rows per warp
+(flash_attention.cu:114-117).
 
 Quantized KV caches (int8 / fp8 with per-token scales, ops/quant.py) are
-dequantized inside the kernel, fused ahead of the QK/PV matmuls — KV HBM
-traffic halves (int8) vs bf16, which is the decode bottleneck.
+dequantized late: per-token scales commute with the dot, so they multiply
+the [group, seq] score rows and the probabilities instead of the [seq, D]
+payload, which is read once at its stored width.
 """
 
 from __future__ import annotations
@@ -31,227 +35,11 @@ import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flash_attention_tpu.ops.common import (
-    LANES,
-    LOG2E,
-    MASK_VALUE,
-    packed_pos,
-    packed_split_order,
-    split_scales_lanes,
-    upcast_kv_payload,
-    upcast_kv_payload_expfold,
-    upcast_kv_payload_packed,
-)
-from flash_attention_tpu.ops.common import ceil_to as _ceil_to
+from flash_attention_tpu.ops.common import LOG2E, MASK_VALUE, M_FLOOR, ceil_to
 from flash_attention_tpu.ops.merge import merge_partial_attention
 from flash_attention_tpu.ops.quant import QuantizedTensor
 from flash_attention_tpu.ops.tuning import select_decode_block_sizes
-
-MIN_GROUP_BLOCK = 16  # bf16 sublane tile height
-
-
-def _decode_kernel(
-    lengths_ref,  # scalar prefetch: [B] int32
-    q_ref,  # [1, 1, Gp, D]
-    k_ref,  # [1, 1, block_kv, D]
-    k_scale_refs,  # () | ([1,1,1,block_kv],) | pair-split halves x2 (packed)
-    v_ref,
-    v_scale_refs,
-    o_ref,  # [1, 1, Gp, D]
-    lse_ref,  # [1, 1, Gp, LANES] or None
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    scale2: float,
-    block_kv: int,
-    num_kv_blocks: int,
-    packed: bool = False,
-    packed_order: str = "pair",
-    window: int | None = None,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
-    ring_buf: int = 0,
-    ring_sinks: int = 0,
-    ring_sinks_pad: int = 0,
-):
-    b = pl.program_id(0)
-    ikv = pl.program_id(2)
-    length = lengths_ref[b]
-
-    @pl.when(ikv == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    if ring_buf:
-        # Rolling (ring-buffer) cache: the buffer holds the LAST
-        # min(length, ring_buf) positions at slot p % ring_buf; `length`
-        # counts total positions written (it exceeds the buffer). All
-        # occupied slots are candidates — per-slot positions are
-        # reconstructed in the mask below. With attention SINKS
-        # (StreamingLLM), slots [0, sinks_pad) permanently hold positions
-        # [0, sinks) and the ring occupies the remaining slots with
-        # modulus ring_buf - sinks_pad.
-        if ring_sinks:
-            # Occupied slots: the sink region (conservatively all of its
-            # padded span — padding columns are masked below) plus the
-            # filled ring span.
-            ring_mod = ring_buf - ring_sinks_pad
-            bound = ring_sinks_pad + jnp.minimum(
-                jnp.maximum(length - ring_sinks, 0), ring_mod
-            )
-            live = ikv * block_kv < bound
-        else:
-            live = ikv * block_kv < jnp.minimum(length, ring_buf)
-    elif window is None:
-        live = ikv * block_kv < length
-    else:
-        live = jnp.logical_and(
-            ikv * block_kv < length, (ikv + 1) * block_kv > length - window
-        )
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]  # [Gp, D]
-        k = k_ref[0, 0]  # [block_kv, D]
-        # Fused dequant, LATE-scaled: per-token scales commute with the dot,
-        # so q·(k·s) == (q·k_payload)·s — apply them to the [Gp, block_kv]
-        # score tile instead of the [block_kv, D] payload (Gp/D ~= 8x less
-        # VPU work, and the payload never materializes in fp32).
-        #
-        # fp8 payloads take the SIMD-packed widen (upcast_kv_payload_packed):
-        # the tile widens into TWO half tiles in pair-split row order, so the
-        # kernel runs the softmax over two half score tiles whose position
-        # iotas are remapped (pos = 2w - (w&1) + 2*half) and whose scale rows
-        # arrive pre-split. The PV dot needs no reorder: P columns and V rows
-        # carry the identical permutation, and the sum is order-invariant.
-        if packed:
-            k0, k1, k_fold = upcast_kv_payload_packed(k)
-            k_halves = (k0, k1)
-        elif k_scale_refs:
-            # Scaled payloads take the exponent-folded fp8 widen: the 2**k
-            # rebias moves off the [block_kv, D] payload tile onto the
-            # [1, block_kv] scale row (and the denorm select disappears).
-            k_up, k_fold = upcast_kv_payload_expfold(k, q.dtype)
-            k_halves = (k_up,)
-        else:
-            k_halves, k_fold = (upcast_kv_payload(k, q.dtype),), 1.0
-
-        s_halves = []
-        for kh, ks_ref in zip(
-            k_halves, k_scale_refs or (None,) * len(k_halves)
-        ):
-            s = jax.lax.dot_general(
-                q, kh, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [Gp, block_kv or block_kv/2]
-            if ks_ref is not None:
-                ks = ks_ref[0, 0]  # [1, cols] broadcast over rows
-                s = s * (ks * k_fold if k_fold != 1.0 else ks)
-            if softcap_in is not None:
-                s = jnp.tanh(s * softcap_in) * softcap_out
-            s_halves.append(s)
-
-        for h, s in enumerate(s_halves):
-            w = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-            if packed:
-                col = ikv * block_kv + packed_pos(w, h, packed_order)
-            else:
-                col = ikv * block_kv + w
-            if ring_buf and ring_sinks:
-                # StreamingLLM two-region layout: slots [0, sinks_pad) hold
-                # positions [0, sinks) verbatim (always attended); the ring
-                # occupies the rest with modulus ring_buf - sinks_pad over
-                # positions >= sinks. Region-2 positions reconstruct as in
-                # the plain ring (shifted by sinks); slots whose
-                # reconstruction falls below `sinks` are empty/stale.
-                ring_mod = ring_buf - ring_sinks_pad
-                sink_ok = jnp.logical_and(
-                    col < ring_sinks, col < length
-                )
-                s2 = col - ring_sinks_pad
-                pos = length - 1 - jnp.remainder(
-                    length - 1 - ring_sinks - s2, ring_mod
-                )
-                ring_ok = jnp.logical_and(
-                    pos >= ring_sinks,
-                    pos >= jnp.maximum(ring_sinks, length - window),
-                )
-                ok = jnp.where(col < ring_sinks_pad, sink_ok, ring_ok)
-            elif ring_buf:
-                # Slot col holds the largest position p < length with
-                # p == col (mod ring_buf), i.e. length-1 - ((length-1-col)
-                # mod ring_buf). Empty slots (length <= ring_buf, col >=
-                # length) come out negative and fail the window bound
-                # below. Attention is permutation-invariant and keys carry
-                # RoPE applied at write time, so masking by reconstructed
-                # position is all a ring layout needs.
-                pos = length - 1 - jnp.remainder(length - 1 - col, ring_buf)
-                ok = pos >= jnp.maximum(0, length - window)
-            else:
-                ok = col < length
-                if window is not None:
-                    ok = jnp.logical_and(ok, col >= length - window)
-            s_halves[h] = jnp.where(ok, s, MASK_VALUE)
-
-        m_prev = m_scr[...]
-        l_prev = l_scr[...]
-        m_curr = s_halves[0].max(axis=-1, keepdims=True)
-        for s in s_halves[1:]:
-            m_curr = jnp.maximum(m_curr, s.max(axis=-1, keepdims=True))
-        m_curr = m_curr * scale2
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        p_halves = [
-            jnp.exp2(s * scale2 - m_next[:, :1]) for s in s_halves
-        ]
-        l_curr = p_halves[0].sum(axis=-1, keepdims=True)
-        for p in p_halves[1:]:
-            l_curr = l_curr + p.sum(axis=-1, keepdims=True)
-        l_scr[...] = alpha * l_prev + l_curr
-        m_scr[...] = m_next
-
-        v = v_ref[0, 0]
-        if packed:
-            v0, v1, v_fold = upcast_kv_payload_packed(v)
-            v_halves = (v0, v1)
-        elif v_scale_refs:
-            v_up, v_fold = upcast_kv_payload_expfold(v, q.dtype)
-            v_halves = (v_up,)
-        else:
-            v_halves, v_fold = (upcast_kv_payload(v, q.dtype),), 1.0
-
-        pv = None
-        for p, vh, vs_ref in zip(
-            p_halves, v_halves, v_scale_refs or (None,) * len(v_halves)
-        ):
-            if vs_ref is not None:
-                # (p·diag(s_v))·v_payload == p·(v_payload·s_v): fold V's
-                # per-token scales into the small p tile before the PV matmul.
-                vs = vs_ref[0, 0]
-                p = p * (vs * v_fold if v_fold != 1.0 else vs)
-            d = jax.lax.dot_general(
-                p.astype(q.dtype), vh, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            pv = d if pv is None else pv + d
-        acc_scr[...] = acc_scr[...] * alpha[:, :1] + pv
-
-    @pl.when(ikv == num_kv_blocks - 1)
-    def _epilogue():
-        l = l_scr[...][:, :1]
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o_ref[0, 0] = (acc_scr[...] * inv).astype(o_ref.dtype)
-        if lse_ref is not None:
-            m = m_scr[...][:, :1]
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(safe_l))
-            lse_ref[0, 0] = jnp.broadcast_to(lse2, lse_ref.shape[2:])
 
 
 def _split_quant(x):
@@ -265,19 +53,13 @@ def should_split_decode(
 ) -> int:
     """Flash-decoding heuristic for OPT-IN callers: 0 = no split.
 
-    Splitting the KV range multiplies the kernel's batch grid axis — the
-    reference's latent grid.z split-K (flash_attention.cu:174-176). On GPUs
-    it fills idle SMs; on a SINGLE-TensorCore chip (v5e) it cannot: the
-    plain kernel's sequential grid already streams the cache at the HBM wall
-    (measured 730 GB/s at batch=1/seq=16K), and `decode_attention_split`'s
-    resplit materialization costs a full cache copy per step — measured 0.76x
-    the plain kernel under production conditions (loop-variant cache).
-    A naive benchmark shows a phantom 2.8x because XLA pins the loop-
-    invariant resplit copy in physical VMEM (128 MB) — do not trust
-    split timings whose cache is scan-invariant. The heuristic therefore
-    targets multi-core parts and stays OFF by default
-    (decode_attention(..., auto_split=False)); the same split + LSE-merge
-    math is live cross-chip in sequence-parallel serving (parallel/).
+    Splitting the KV range multiplies the independent work items — the
+    reference's latent grid.z split-K (flash_attention.cu:174-176), which
+    fills idle SMs when batch x kv_heads is small and the context is long.
+    The split costs one re-layout copy of the cache per call, so it stays
+    OFF by default (decode_attention(..., auto_split=False)); the same split
+    + LSE-merge math is live across devices in sequence-parallel serving
+    (parallel/).
     """
     if batch * num_kv_heads > 16 or max_seq < 8192:
         return 0
@@ -286,6 +68,37 @@ def should_split_decode(
     while splits > 1 and max_seq % splits:
         splits -= 1
     return splits if splits > 1 else 0
+
+
+def _visible(lengths, max_seq, *, window, ring_buffer, sinks):
+    """[B, S] mask of the cache slots the current token attends to."""
+    col = jnp.arange(max_seq, dtype=jnp.int32)[None, :]
+    length = lengths[:, None]
+    if ring_buffer and sinks:
+        # StreamingLLM two-region layout: slots [0, sinks_pad) hold
+        # positions [0, sinks) verbatim (always attended); the ring occupies
+        # the rest with modulus max_seq - sinks_pad over positions >= sinks.
+        # Slots whose reconstructed position falls below `sinks` are empty.
+        sinks_pad = ceil_to(sinks, 128)
+        ring_mod = max_seq - sinks_pad
+        sink_ok = jnp.logical_and(col < sinks, col < length)
+        pos = length - 1 - jnp.remainder(
+            length - 1 - sinks - (col - sinks_pad), ring_mod
+        )
+        ring_ok = pos >= jnp.maximum(sinks, length - window)
+        return jnp.where(col < sinks_pad, sink_ok, ring_ok)
+    if ring_buffer:
+        # Slot col holds the largest position p < length with p == col (mod
+        # max_seq). Empty slots (length <= max_seq, col >= length) come out
+        # negative and fail the window bound. Keys carry RoPE applied at
+        # write time and attention is permutation-invariant, so masking by
+        # reconstructed position is all a ring layout needs.
+        pos = length - 1 - jnp.remainder(length - 1 - col, max_seq)
+        return pos >= jnp.maximum(0, length - window)
+    ok = col < length
+    if window is not None:
+        ok = jnp.logical_and(ok, col >= length - window)
+    return ok
 
 
 @functools.partial(
@@ -320,34 +133,31 @@ def decode_attention(
       k_cache, v_cache: [batch, kv_heads, max_seq, head_dim] — either plain
         arrays (bf16/fp16/fp32) or :class:`QuantizedTensor` (int8/fp8 payload
         + [batch, kv_heads, max_seq, 1] fp32 per-token scales), dequantized
-        in-kernel.
+        inside the fused step.
       lengths: [batch] int32 — valid KV prefix per sequence (the new token's
         K/V must already be written at position lengths-1).
-      block_kv: KV rows per grid step.
-      save_residuals: also return base-2 LSE [batch, q_heads] for cross-chip
+      block_kv: split unit of the flash-decoding gate (a positive multiple of
+        128; stepped down to a divisor of the 128-padded cache length).
+      save_residuals: also return base-2 LSE [batch, q_heads] for cross-device
         or split merging.
+      interpret: accepted for interface stability; this op has no kernel.
       auto_split: opt-in dispatch to :func:`decode_attention_split`
-        (flash-decoding) per :func:`should_split_decode`. Default OFF: on
-        single-core v5e the plain kernel is already HBM-wall-bound and the
-        split's resplit copy is a net loss (see should_split_decode).
-      d64_unpadded: head_dim=64 caches stay 64-wide in the kernel (block
-        minor dim = full array minor dim, which Mosaic accepts — the same
-        form as the forward's BlockSizes.d64_unpadded). Without it a d=64
-        cache is jnp.pad-copied to 128 wide EVERY decode step — for a
-        multi-GiB cache the copy, not the kernel, is the step time. Off by
-        default pending on-chip validation of the Mosaic layout.
+        (flash-decoding) per :func:`should_split_decode`.
+      d64_unpadded: accepted for interface stability; head_dim is never
+        padded here.
       ring_buffer: the cache is a ROLLING buffer (Mistral-class local
         attention): position p lives at slot p % max_seq and `lengths`
         counts TOTAL positions written (it may exceed max_seq). Requires
         sliding_window <= max_seq (the buffer must hold the whole window)
-        and a 128-multiple max_seq. Keys carry RoPE applied at write time
-        and attention is permutation-invariant, so the kernel only remaps
-        the mask positions — memory stays O(window) however long the
+        and a 128-multiple max_seq. Memory stays O(window) however long the
         sequence runs.
+      attention_sinks: with ring_buffer, the first ``attention_sinks``
+        positions stay pinned in slots [0, ceil128(sinks)) (StreamingLLM).
 
     Returns:
       [batch, q_heads, head_dim] output (q.dtype), plus LSE if requested.
     """
+    del interpret, d64_unpadded
     k_vals, k_scales = _split_quant(k_cache)
     v_vals, v_scales = _split_quant(v_cache)
 
@@ -364,13 +174,17 @@ def decode_attention(
                 f"ring_buffer requires a 128-multiple buffer, got {max_seq}"
             )
         ring_cap = max_seq - (
-            _ceil_to(attention_sinks, 128) if attention_sinks else 0
+            ceil_to(attention_sinks, 128) if attention_sinks else 0
         )
         if sliding_window > ring_cap:
             raise ValueError(
                 f"ring region ({ring_cap} of buffer {max_seq}) must hold "
                 f"the whole window ({sliding_window})"
             )
+    if block_kv is not None and (block_kv < 128 or block_kv % 128):
+        raise ValueError(
+            f"block_kv must be a positive multiple of 128, got {block_kv}"
+        )
     if (
         auto_split and not save_residuals and not ring_buffer
         and sliding_window is None and logit_softcap is None
@@ -381,222 +195,52 @@ def decode_attention(
             return decode_attention_split(
                 q, k_cache, v_cache, lengths,
                 num_splits=ns, sm_scale=sm_scale, block_kv=block_kv,
-                interpret=interpret, d64_unpadded=d64_unpadded,
             )
     if num_q_heads % num_kv_heads:
         raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
     if sliding_window is not None and sliding_window < 1:
-        # A window of 0 would leave the live KV block fully masked and the
-        # plain-softmax epilogue would emit an unweighted average of
-        # arbitrary V rows — reject like the forward does.
+        # A window of 0 would leave every slot masked and emit zeros for a
+        # token that must at least see itself — reject like the forward.
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if block_kv is None:
-        block_kv = select_decode_block_sizes(max_seq).block_kv
-    elif block_kv < 128 or block_kv % 128:
-        # The divisor walk below steps by 128 from a 128-multiple, so a
-        # misaligned override would never terminate (or go negative).
-        raise ValueError(f"block_kv must be a positive multiple of 128, got {block_kv}")
 
     group = num_q_heads // num_kv_heads
-    group_pad = max(_ceil_to(group, 8), MIN_GROUP_BLOCK)
-    if d64_unpadded and head_dim == 64:
-        d_pad = 64
-    else:
-        d_pad = _ceil_to(head_dim, 128)
-
-    # [B, Hq, D] -> [B, Hkv, Gp, D]
+    compute = q.dtype
     qg = q.reshape(batch, num_kv_heads, group, head_dim)
-    if group_pad != group or d_pad != head_dim:
-        qg = jnp.pad(
-            qg, ((0, 0), (0, 0), (0, group_pad - group), (0, d_pad - head_dim))
+    with jax.named_scope("decode_attention"):
+        s = jnp.einsum(
+            "bhgd,bhsd->bhgs", qg, k_vals.astype(compute),
+            preferred_element_type=jnp.float32,
         )
-
-    # block_kv must DIVIDE the 128-padded cache length: padding to a block
-    # multiple instead would jnp.pad-copy the ENTIRE cache (and scales)
-    # through HBM on every decode step — for a multi-GiB cache that copy,
-    # not the kernel, becomes the step time. Walk down to the largest
-    # 128-multiple divisor (<= 31 trace-time iterations).
-    seq_pad = _ceil_to(max_seq, 128)
-    block_kv = min(block_kv, seq_pad)
-    while seq_pad % block_kv:
-        block_kv -= 128
-
-    # fp8 payloads dispatch to the SIMD-packed widen (pair-split halves),
-    # whose scale block is block_kv // 2 — itself a lane dim, so it must
-    # stay a 128 multiple: packed mode needs block_kv % 256 == 0. Prefer
-    # shrinking to a 256-multiple divisor; fall back to the expfold
-    # (unpacked) widen when the padded length has none (e.g. 128 * odd).
-    packed = (
-        k_vals.dtype in (jnp.float8_e4m3fn, jnp.float8_e5m2)
-        and v_vals.dtype == k_vals.dtype
-        and k_scales is not None
-        and v_scales is not None
-        and q.dtype == jnp.bfloat16
-    )
-    if packed and block_kv % 256:
-        bk = (block_kv // 256) * 256
-        while bk >= 256 and seq_pad % bk:
-            bk -= 256
-        if bk >= 256:
-            block_kv = bk
-        else:
-            packed = False
-
-    pads = ((0, 0), (0, 0), (0, seq_pad - max_seq), (0, d_pad - head_dim))
-    if seq_pad != max_seq or d_pad != head_dim:
-        k_vals = jnp.pad(k_vals, pads)
-        v_vals = jnp.pad(v_vals, pads)
         if k_scales is not None:
-            spads = ((0, 0), (0, 0), (0, seq_pad - max_seq), (0, 0))
-            k_scales = jnp.pad(k_scales, spads)
-            v_scales = jnp.pad(v_scales, spads)
-    num_kv_blocks = seq_pad // block_kv
-
-    # Scales ride lane-oriented ([B, H, 1, S]) so the kernel's late-scaling
-    # broadcast needs no relayout.
-    if k_scales is not None:
-        k_scales = jnp.swapaxes(k_scales, 2, 3)
-        v_scales = jnp.swapaxes(v_scales, 2, 3)
-
-    # The scale rows are pair-split here to match the packed widen's halves
-    # (~3.5% of step time — measured 33.5k -> 38.5k tok/s e4m3 net at
-    # b=32/s=8K even paying it per call).
-    packed_order = packed_split_order(interpret)
-    if packed:
-        k_scale_list = split_scales_lanes(k_scales, packed_order)
-        v_scale_list = split_scales_lanes(v_scales, packed_order)
-    elif k_scales is not None:
-        k_scale_list = (k_scales,)
-        v_scale_list = (v_scales,)
-    else:
-        k_scale_list = ()
-        v_scale_list = ()
-
-    def last_live(b, lengths_ref):
-        n = lengths_ref[b]
-        if ring_buffer and attention_sinks:
-            sinks_pad = _ceil_to(attention_sinks, 128)
-            n = sinks_pad + jnp.minimum(
-                jnp.maximum(n - attention_sinks, 0), max_seq - sinks_pad
+            s = s * jnp.swapaxes(k_scales, 2, 3).astype(jnp.float32)
+        if logit_softcap is not None:
+            s = jnp.tanh(s * (sm_scale / logit_softcap)) * (
+                logit_softcap * LOG2E
             )
-        elif ring_buffer:
-            # Occupied slots are [0, min(length, buffer)) — once wrapped,
-            # every slot is live (positions are remapped in the mask).
-            n = jnp.minimum(n, max_seq)
-        return jnp.maximum(pl.cdiv(n, block_kv) - 1, 0)
-
-    def live_index(b, ikv, lengths_ref):
-        # Clamp into the live range so fully-masked blocks repeat a live
-        # index and issue no DMA: above the length (all modes) and below the
-        # sliding window (local attention reads only ~window rows).
-        idx = jnp.minimum(ikv, last_live(b, lengths_ref))
-        if sliding_window is not None and not ring_buffer:
-            lo = jnp.maximum(lengths_ref[b] - sliding_window, 0) // block_kv
-            idx = jnp.maximum(idx, lo)
-        return idx
-
-    def kv_map(b, h, ikv, lengths_ref):
-        return (b, h, live_index(b, ikv, lengths_ref), 0)
-
-    def scale_map(b, h, ikv, lengths_ref):
-        return (b, h, 0, live_index(b, ikv, lengths_ref))
-
-    q_spec = pl.BlockSpec(
-        (1, 1, group_pad, d_pad), lambda b, h, ikv, L: (b, h, 0, 0)
-    )
-    kv_spec = pl.BlockSpec((1, 1, block_kv, d_pad), kv_map)
-    sc_block = block_kv // 2 if packed else block_kv
-    sc_spec = pl.BlockSpec((1, 1, 1, sc_block), scale_map)
-
-    in_specs = [q_spec, kv_spec]
-    inputs = [qg, k_vals]
-    for s in k_scale_list:
-        in_specs.append(sc_spec)
-        inputs.append(s)
-    in_specs.append(kv_spec)
-    inputs.append(v_vals)
-    for s in v_scale_list:
-        in_specs.append(sc_spec)
-        inputs.append(s)
-
-    out_shapes = [
-        jax.ShapeDtypeStruct((batch, num_kv_heads, group_pad, d_pad), q.dtype)
-    ]
-    out_specs = [
-        pl.BlockSpec((1, 1, group_pad, d_pad), lambda b, h, ikv, L: (b, h, 0, 0))
-    ]
+        else:
+            s = s * (sm_scale * LOG2E)
+        ok = _visible(
+            lengths.astype(jnp.int32), max_seq, window=sliding_window,
+            ring_buffer=ring_buffer, sinks=attention_sinks,
+        )[:, None, None, :]
+        s = jnp.where(ok, s, MASK_VALUE)
+        m = jnp.maximum(jnp.max(s, axis=-1, keepdims=True), M_FLOOR)
+        p = jnp.exp2(s - m)
+        l = jnp.sum(p, axis=-1, keepdims=True)
+        if v_scales is not None:
+            p = p * jnp.swapaxes(v_scales, 2, 3).astype(jnp.float32)
+        o = jnp.einsum(
+            "bhgs,bhsd->bhgd", p.astype(compute), v_vals.astype(compute),
+            preferred_element_type=jnp.float32,
+        )
+        empty = l == 0.0
+        l_safe = jnp.where(empty, 1.0, l)
+        out = (o / l_safe).astype(q.dtype).reshape(batch, num_q_heads, head_dim)
     if save_residuals:
-        out_shapes.append(
-            jax.ShapeDtypeStruct(
-                (batch, num_kv_heads, group_pad, LANES), jnp.float32
-            )
-        )
-        out_specs.append(
-            pl.BlockSpec((1, 1, group_pad, LANES), lambda b, h, ikv, L: (b, h, 0, 0))
-        )
-
-    n_ks = len(k_scale_list)
-    n_vs = len(v_scale_list)
-
-    def wrapped(lengths_ref, *refs):
-        idx = 0
-        q_ref = refs[idx]; idx += 1
-        k_ref = refs[idx]; idx += 1
-        k_s = tuple(refs[idx:idx + n_ks])
-        idx += n_ks
-        v_ref = refs[idx]; idx += 1
-        v_s = tuple(refs[idx:idx + n_vs])
-        idx += n_vs
-        o_ref = refs[idx]; idx += 1
-        lse_ref = refs[idx] if save_residuals else None
-        idx += int(save_residuals)
-        m_scr, l_scr, acc_scr = refs[idx:]
-        _decode_kernel(
-            lengths_ref, q_ref, k_ref, k_s, v_ref, v_s, o_ref, lse_ref,
-            m_scr, l_scr, acc_scr,
-            scale2=sm_scale * LOG2E,
-            block_kv=block_kv,
-            num_kv_blocks=num_kv_blocks,
-            packed=packed,
-            packed_order=packed_order,
-            window=sliding_window,
-            softcap_in=None if logit_softcap is None else sm_scale / logit_softcap,
-            softcap_out=None if logit_softcap is None else logit_softcap / sm_scale,
-            ring_buf=max_seq if ring_buffer else 0,
-            ring_sinks=attention_sinks,
-            ring_sinks_pad=_ceil_to(attention_sinks, 128) if attention_sinks else 0,
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(batch, num_kv_heads, num_kv_blocks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((group_pad, LANES), jnp.float32),
-            pltpu.VMEM((group_pad, LANES), jnp.float32),
-            pltpu.VMEM((group_pad, d_pad), jnp.float32),
-        ],
-    )
-
-    results = pl.pallas_call(
-        wrapped,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(lengths.astype(jnp.int32), *inputs)
-
-    out = results[0][:, :, :group, :head_dim].reshape(batch, num_q_heads, head_dim)
-    if save_residuals:
-        lse2 = results[1][:, :, :group, 0].reshape(batch, num_q_heads)
-        return out, lse2
+        lse2 = jnp.where(empty, -jnp.inf, m + jnp.log2(l_safe))
+        return out, lse2.reshape(batch, num_q_heads)
     return out
 
 
@@ -615,10 +259,11 @@ def decode_attention_split(
     """Flash-decoding: split the KV range, attend per split, LSE-merge.
 
     The live version of the reference's split-K grid.z path + merge kernel
-    (flash_attention.cu:174-176, 559-598). Splits map into the kernel's batch
-    grid axis (more parallel work when batch*kv_heads is small); the merge is
-    the spec'd primitive from ops/merge.py.
+    (flash_attention.cu:174-176, 559-598). Splits become extra batch rows
+    (more independent work when batch*kv_heads is small); the merge is the
+    spec'd primitive from ops/merge.py.
     """
+    del interpret, d64_unpadded
     k_vals, k_scales = _split_quant(k_cache)
     v_vals, v_scales = _split_quant(v_cache)
     batch, num_q_heads, head_dim = q.shape
@@ -627,18 +272,18 @@ def decode_attention_split(
         raise ValueError(f"max_seq={max_seq} % num_splits={num_splits} != 0")
     split_len = max_seq // num_splits
 
-    def resplit(x, dim_len):
+    def resplit(x):
         # [B, H, S, d] -> [B*ns, H, S/ns, d]
         b, h, s, d = x.shape
         x = x.reshape(b, h, num_splits, s // num_splits, d)
         x = jnp.moveaxis(x, 2, 1)  # [B, ns, H, S/ns, d]
         return x.reshape(b * num_splits, h, s // num_splits, d)
 
-    k_r = resplit(k_vals, split_len)
-    v_r = resplit(v_vals, split_len)
+    k_r = resplit(k_vals)
+    v_r = resplit(v_vals)
     if k_scales is not None:
-        k_r = QuantizedTensor(values=k_r, scales=resplit(k_scales, split_len))
-        v_r = QuantizedTensor(values=v_r, scales=resplit(v_scales, split_len))
+        k_r = QuantizedTensor(values=k_r, scales=resplit(k_scales))
+        v_r = QuantizedTensor(values=v_r, scales=resplit(v_scales))
     q_r = jnp.broadcast_to(
         q[:, None], (batch, num_splits, num_q_heads, head_dim)
     ).reshape(batch * num_splits, num_q_heads, head_dim)
@@ -647,12 +292,8 @@ def decode_attention_split(
         jnp.repeat(lengths, num_splits) - split_starts, 0, split_len
     ).astype(jnp.int32)
 
-    if block_kv is None:
-        block_kv = select_decode_block_sizes(split_len).block_kv
     o, lse2 = decode_attention(
-        q_r, k_r, v_r, lengths_r,
-        sm_scale=sm_scale, block_kv=min(block_kv, split_len),
-        save_residuals=True, interpret=interpret, d64_unpadded=d64_unpadded,
+        q_r, k_r, v_r, lengths_r, sm_scale=sm_scale, save_residuals=True,
     )
     o = o.reshape(batch, num_splits, num_q_heads, head_dim)
     lse2 = lse2.reshape(batch, num_splits, num_q_heads)

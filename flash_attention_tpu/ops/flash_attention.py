@@ -1,1001 +1,244 @@
-"""Fused flash-attention forward kernel (Pallas / Mosaic TPU).
+"""Fused flash-attention forward kernel (Pallas, Triton route, for Hopper).
 
-TPU-native re-design of the reference's ``flash_attention_v9`` CUDA kernel
-(C4, flash_attention.cu:67-554) — same algorithm (blockwise QKᵀ → online
-softmax → PV with fp32 running (m, l, acc) state), completely different
-mechanics:
+Re-design of the reference's ``flash_attention_v9`` CUDA kernel (C4,
+flash_attention.cu:67-554) — the same algorithm (blockwise QKᵀ → online
+softmax → PV with fp32 running (m, l, acc) state), written for one Triton
+program per (head, Q tile):
 
-  * mma.sync.m16n8k16 tensor-core tiles (flash_attention.cu:223-231) become
-    ``jax.lax.dot_general`` on the 128×128 MXU with fp32 accumulation.
-  * smem staging + XOR swizzle + ldmatrix (flash_attention.cu:91-95, 208, 308)
-    become Pallas BlockSpecs into VMEM; Mosaic owns physical layout.
-  * the cp.async triple-buffer pipeline (flash_attention.cu:336-414) becomes
-    Pallas grid pipelining (automatic double-buffering of index-mapped blocks).
-  * warp-shuffle row reductions (flash_attention.cu:259-262) become
-    ``jnp.max/sum`` over the score tile in vector registers.
-  * Q-in-registers across the KV loop (flash_attention.cu:145-159) becomes a Q
-    block whose index map is constant along the KV grid axis (stays in VMEM).
-  * the causal grid-swap / reversed-Q balancing trick (flash_attention.cu:
-    103-111) becomes KV-index-map clamping + predicated compute: fully-masked
-    KV blocks issue no DMA (the clamped index repeats the previous block) and
-    run no FLOPs, which is the TPU-idiomatic way to win the causal ÷2.
+  * the warp's Q slice held in registers across the whole KV loop
+    (flash_attention.cu:145-159) is the program's Q tile, loaded once and
+    held across an in-kernel ``fori_loop`` over KV tiles;
+  * mma.sync.m16n8k16 tiles with fp32 accumulation (flash_attention.cu:
+    223-231) are ``pl.dot`` with fp32 results, which Triton emits as
+    Hopper ``wgmma``;
+  * the padded / swizzled shared-memory K/V staging and the 3-stage
+    cp.async pipeline (flash_attention.cu:91-95, 336-414) are Triton's
+    ``num_stages`` ring of asynchronous K/V copies;
+  * the causal reversed-Q launch order (flash_attention.cu:103-111) is kept:
+    Q tiles are enumerated last-first, so the heaviest programs start first;
+  * tiles and warps come from shape (ops/tuning.py), as the reference's four
+    tiers did (flash_attention.cu:606-663).
+
+Masks cost work only where they can bite: each program splits its KV range
+into a mask-free middle and masked edges (the causal diagonal, the sliding
+window's leading edge, a ragged last tile). Packed inputs narrow the KV range
+of each Q tile to the tiles whose segment ids can match.
 
 Numerics contract (SURVEY.md §5 "numerics policy"): fp16/bf16 I/O, fp32 score
-and output accumulators, exp2-domain softmax with the log2(e) factor folded
-into the fp32 scale constant applied inside the fused exp2 chain (the
-reference folds it the same way, flash_attention.cu:239), finite
-large-negative mask value rather than -inf, and a l==0 → output 0 guard
-(flash_attention.cu:502-503).
+and output accumulators, exp2-domain softmax with log2(e) folded into the
+scale (flash_attention.cu:239), finite large-negative mask value rather than
+-inf, and an l == 0 → output 0 guard (flash_attention.cu:502-503).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import os
-
-# A/B switch for the diagonal final-step fusion (default on); used to
-# measure the fused vs scratch-merge diagonal in ONE process, where timing
-# is stable (inter-process drift on this chip is +-10-15%).
-_DIAG_FUSE = os.environ.get("FA_DIAG_FUSE", "1") != "0"
 
 import jax
 import jax.numpy as jnp
+import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flash_attention_tpu.ops.common import LANES, LOG2E, MASK_VALUE, M_FLOOR, ceil_to
+from flash_attention_tpu.ops.common import (
+    LOG2E,
+    M_FLOOR,
+    MASK_VALUE,
+    ceil_to,
+    next_pow2,
+    resolve_interpret,
+    triton_params,
+)
 from flash_attention_tpu.ops.tuning import (
     BlockSizes,
+    clamp_to_seq,
     select_block_sizes,
     select_bwd_block_sizes,
 )
 
-_ceil_to = ceil_to
+
+def _cdiv(a, b: int):
+    """Ceil division of a non-negative traced int by a static int."""
+    return lax.div(a + (b - 1), b)
+
+
+def _kv_ranges(r0, *, block_q, block_kv, num_kv_blocks, kv_len, causal,
+               window, seg_bounds=None):
+    """KV tile ranges of the Q tile whose first row sits at KV position r0.
+
+    Returns (lo, a, b, hi): tiles [lo, a) and [b, hi) need the mask, tiles
+    [a, b) are fully visible to every row of the tile.
+    """
+    hi = num_kv_blocks
+    full_hi = num_kv_blocks
+    if causal:
+        # Columns <= the last row's position; fully live while <= r0.
+        hi = jnp.minimum(_cdiv(r0 + block_q, block_kv), num_kv_blocks)
+        full_hi = lax.div(r0 + 1, block_kv)
+    if kv_len % block_kv:
+        full_hi = jnp.minimum(full_hi, kv_len // block_kv)
+    lo = 0
+    full_lo = 0
+    if window is not None:
+        lo = lax.div(jnp.maximum(r0 - window + 1, 0), block_kv)
+        full_lo = _cdiv(jnp.maximum(r0 + block_q - window, 0), block_kv)
+    if seg_bounds is not None:
+        lo = jnp.maximum(lo, seg_bounds[0])
+        hi = jnp.minimum(hi, seg_bounds[1])
+    a = jnp.minimum(jnp.maximum(full_lo, lo), hi)
+    b = jnp.maximum(a, jnp.minimum(full_hi, hi))
+    return lo, a, b, hi
+
+
+def tile_loop(ranges, body, carry, *, packed):
+    """Run ``body(j, carry, masked)`` over the tiles of ``ranges`` = (lo, a,
+    b, hi): masked edges [lo, a) and [b, hi) around a mask-free middle
+    [a, b). Segment ids can mask any tile, so packed inputs take one masked
+    loop over [lo, hi)."""
+    lo, a, b, hi = ranges
+    masked = functools.partial(body, masked=True)
+    if packed:
+        return lax.fori_loop(lo, hi, masked, carry)
+    carry = lax.fori_loop(lo, a, masked, carry)
+    carry = lax.fori_loop(a, b, functools.partial(body, masked=False), carry)
+    return lax.fori_loop(b, hi, masked, carry)
+
+
+def _logits(s, *, sm_scale, softcap):
+    """Raw QKᵀ -> base-2 logits (and tanh for the softcap gradient)."""
+    if softcap is None:
+        return s * (sm_scale * LOG2E), None
+    t = jnp.tanh(s * (sm_scale / softcap))
+    return t * (softcap * LOG2E), t
+
+
+def _visible(rows, cols, *, kv_len, kv_pad, causal, window, seg_q, seg_kv):
+    ok = None
+
+    def both(a, b):
+        return b if a is None else jnp.logical_and(a, b)
+
+    if kv_pad != kv_len:
+        ok = both(ok, cols < kv_len)
+    if causal:
+        ok = both(ok, cols <= rows)
+    if window is not None:
+        ok = both(ok, cols > rows - window)
+    if seg_q is not None:
+        ok = both(ok, seg_q[:, None] == seg_kv[None, :])
+    return ok
 
 
 def _fwd_kernel(
-    q_ref,
-    k_ref,
-    v_ref,
-    seg_q_ref,  # [1, block_q] int32 or None (packed-sequence segment ids)
-    seg_kv_ref,  # [1, block_kv] int32 or None
-    o_ref,
-    lse_ref,
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    causal: bool,
-    scale2: float,
-    q_len: int,
-    kv_len: int,
-    block_q: int,
-    block_kv: int,
-    num_kv_blocks: int,
-    kv_pad: bool,
-    tri_refs=None,
-    single_step: bool = False,
-    kv_repeat: int = 1,
-    window: int | None = None,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
-    subtile: int = 0,
-    diag_subtile: int = 0,
-    head_unroll: bool = False,
-    diag_pipe: bool = False,
-    window_lead: bool = False,
-    packed_subtile: bool = False,
-    packed: bool = False,
-    packed_hb: int = 1,
-    packed_heads: int = 1,
-    packed_T: int = 0,
-    nc_live_ref=None,  # flat [B*nq*nkv] int32 liveness (non-causal packed)
-    nc_nq: int = 0,
+    q_ref, k_ref, v_ref, *refs,
+    sm_scale, causal, window, softcap, packed, save_residuals,
+    q_len, kv_len, kv_pad, block_q, block_kv, num_q_blocks,
 ):
-    # Decode/chunked-prefill convention: the last Q row aligns with the last
-    # KV row (offset = kv_len - q_len, both true lengths).
-    diag_offset = kv_len - q_len
-    if tri_refs is not None:
-        # Triangular enumeration: grid axis 1 walks only LIVE (iq, ikv)
-        # pairs; every step computes, init/epilogue come from prefetch flags.
-        # Packed mode (segment-aware block skipping): the enumeration is a
-        # RUNTIME per-batch-row [B, T] compaction — live steps first, the
-        # dead tail clamped to the last live pair (bit 8 = dead: no compute,
-        # no scratch/epilogue touch; the clamped index maps re-issue no DMA).
-        iq_ref, ikv_ref, flags_ref = tri_refs
-        t = pl.program_id(1)
-        if packed:
-            # Flat [B*T] prefetch indexing (the paged kernels' proven
-            # on-chip pattern; 2D SMEM reads are untested on real Mosaic).
-            b = (pl.program_id(0) * packed_hb) // packed_heads
-            iq = iq_ref[b * packed_T + t]
-            ikv = ikv_ref[b * packed_T + t]
-            flags = flags_ref[b * packed_T + t]
-        else:
-            iq = iq_ref[t]
-            ikv = ikv_ref[t]
-            flags = flags_ref[t]
-        is_first = (flags & 1) != 0
-        is_last = (flags & 2) != 0
-        is_diag = (flags & 4) != 0
-        should_run = (flags & 8) == 0 if packed else True
-    else:
-        # Non-causal: tri enumeration does not apply (every causal call
-        # routes through the tri grid above). With packed segments the dense
-        # (iq, ikv) walk is instead gated through a prefetched liveness
-        # table — dead cross-document blocks skip their MMAs, and the index
-        # maps clamp their DMA into the [first, last]-live band (the same
-        # pattern as the backward grids). Init/epilogue stay grid-position
-        # based, so fully-dead q blocks still write the l==0 -> zeros /
-        # lse=-inf contract.
-        iq = pl.program_id(1)
-        ikv = pl.program_id(2)
-        is_first = ikv == 0
-        is_last = ikv == num_kv_blocks - 1
-        if nc_live_ref is not None:
-            b = (pl.program_id(0) * packed_hb) // packed_heads
-            should_run = (
-                nc_live_ref[(b * nc_nq + iq) * num_kv_blocks + ikv] != 0
-            )
-        else:
-            should_run = True
+    refs = list(refs)
+    segq_ref = segkv_ref = bounds_ref = None
+    if packed:
+        segq_ref, segkv_ref, bounds_ref = refs[:3]
+        refs = refs[3:]
+    o_ref = refs[0]
+    lse_ref = refs[1] if save_residuals else None
 
-    if subtile:
-        # Causal single-superblock sub-tiling: the whole (q, kv) problem is
-        # one block pair, and the kernel unrolls over `subtile`-row Q
-        # sub-blocks. Sub-block i's rows can only see KV columns
-        # [0, diag_offset + (i+1)*subtile), so ONE wide MMA over exactly that
-        # (128-padded) prefix computes all its live scores — masked-region
-        # MXU waste falls from ~50% (full-tile diagonal) to ~1/(n+1), and
-        # each row-block sees its whole KV range at once so plain softmax
-        # applies (no (m, l, acc) scratch, no alpha rescale — the same ~1/3
-        # VPU savings as the single_step branch below). This is the
-        # fine-tiled diagonal the reference could not express: its CTA tiling
-        # fixed BLOCK_N for the whole Q row (flash_attention.cu:620-661).
-        w = subtile
-        q = q_ref[...]  # [hb, block_q, d]
-        k = k_ref[...]  # [hb_kv, block_kv, d]
-        v = v_ref[...]
-        if kv_repeat > 1 and not head_unroll:
-            # GQA: expand kv heads to match the q head batch (the
-            # head-unrolled path indexes k[h // kv_repeat] directly).
-            k = jnp.repeat(k, kv_repeat, axis=0)
-            v = jnp.repeat(v, kv_repeat, axis=0)
-        kv_block = k.shape[1]
-        # Fast additive mask: when the diagonal lands on a lane boundary and
-        # the KV length is unpadded, sub-block i's live prefix has width
-        # exactly diag_offset + (i+1)*w, and its causal mask equals the
-        # RIGHT-ALIGNED slice [:, kv_block-width:] of ONE precomputed [w,
-        # kv_block] additive tile: with u = col + (kv_block - width), the
-        # condition col <= row + diag_offset + i*w becomes u <= row +
-        # kv_block - w — independent of i. That turns the per-sub-block
-        # iota+compare+select (3 VPU passes over every computed score) into a
-        # single add.
-        fast_mask = diag_offset % 128 == 0 and not kv_pad and seg_q_ref is None
-        if fast_mask:
-            u = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 1)
-            r = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 0)
-            addmask = jnp.where(
-                u <= r + kv_block - w, 0.0, MASK_VALUE
-            ).astype(jnp.float32)
-        if head_unroll:
-            # Per-(sub-step, head) chains (see _online_body's head_unroll):
-            # every head's 2D QK matmul for a sub-step is issued before any
-            # of its softmaxes, so the MXU runs head h+1's matmul (and,
-            # with diag_pipe, the next sub-step's) through head h's VPU
-            # phase. GQA heads read their group's KV head directly.
-            def qk_sub(i):
-                width = min(
-                    kv_block, _ceil_to(diag_offset + (i + 1) * w, 128)
-                )
-                s_h = [
-                    jax.lax.dot_general(
-                        q[h, i * w : (i + 1) * w, :],
-                        k[h // kv_repeat, :width, :],
-                        (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )  # [w, width]
-                    for h in range(q.shape[0])
-                ]
-                return s_h, width
-        else:
-            def qk_sub(i):
-                qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-                # Live prefix for this sub-block's rows, 128-padded.
-                width = min(
-                    kv_block, _ceil_to(diag_offset + (i + 1) * w, 128)
-                )
-                ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-                s = jax.lax.dot_general(
-                    qi, ki, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, width]
-                return s, width
-
-        n_sub = block_q // w
-        if diag_pipe:
-            # 2-stage software pipeline: sub-block i+1's QK matmul is
-            # issued BEFORE sub-block i's softmax/PV phase, so the MXU
-            # works through each VPU phase instead of idling on the
-            # serial QK -> softmax -> PV chain. One extra live sub score
-            # tile of VMEM.
-            s_pipe = qk_sub(0)
-        for i in range(n_sub):
-            if diag_pipe:
-                s, width = s_pipe
-                if i + 1 < n_sub:
-                    s_pipe = qk_sub(i + 1)
-            else:
-                s, width = qk_sub(i)
-            rows = slice(i * w, (i + 1) * w)
-            if fast_mask:
-                mask_add = jax.lax.slice_in_dim(
-                    addmask, kv_block - width, kv_block, axis=1
-                )
-                ok = None
-            else:
-                shape2d = (w, width)
-                col = jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                row = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                    + i * w
-                    + diag_offset
-                )
-                ok = col <= row
-                if kv_pad:
-                    ok = jnp.logical_and(ok, col < kv_len)
-                if seg_q_ref is not None:
-                    sq = seg_q_ref[0, 0, i * w : (i + 1) * w]
-                    skv = seg_kv_ref[0, 0, :width]
-                    ok = jnp.logical_and(ok, sq[:, None] == skv[None, :])
-
-            def finish(s2, vi2, out_slot):
-                # One sub-block's softmax + PV for a [.., w, width] tile
-                # (3D batched or 2D per-head; the mask tiles broadcast).
-                if softcap_in is not None:
-                    s3 = jnp.tanh(s2 * softcap_in) * softcap_out
-                else:
-                    s3 = s2
-                if fast_mask:
-                    s3 = s3 + (mask_add if s3.ndim == 2 else mask_add[None])
-                else:
-                    s3 = jnp.where(
-                        ok if s3.ndim == 2 else ok[None], s3, MASK_VALUE
-                    )
-                m = jnp.maximum(
-                    jnp.max(s3, axis=-1, keepdims=True) * scale2, M_FLOOR
-                )
-                p = jnp.exp2(s3 * scale2 - m)
-                l = jnp.sum(p, axis=-1, keepdims=True)
-                # Normalize BEFORE the PV matmul (see single_step).
-                inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-                dims = (
-                    (((1,), (0,)), ((), ()))
-                    if s3.ndim == 2 else (((2,), (1,)), ((0,), (0,)))
-                )
-                pv = jax.lax.dot_general(
-                    (p * inv).astype(vi2.dtype), vi2, dims,
-                    preferred_element_type=jnp.float32,
-                )
-                o_ref[out_slot] = pv.astype(o_ref.dtype)
-                if lse_ref is not None:
-                    safe_l = jnp.where(l == 0.0, 1.0, l)
-                    lse2 = jnp.where(
-                        l == 0.0, -jnp.inf, m + jnp.log2(safe_l)
-                    )
-                    tgt = (
-                        (w, lse_ref.shape[-1]) if s3.ndim == 2
-                        else (s3.shape[0], w, lse_ref.shape[-1])
-                    )
-                    lse_ref[out_slot] = jnp.broadcast_to(lse2, tgt)
-
-            if head_unroll:
-                for h in range(q.shape[0]):
-                    finish(
-                        s[h], v[h // kv_repeat, :width, :], (h, rows)
-                    )
-            else:
-                finish(
-                    s, jax.lax.slice_in_dim(v, 0, width, axis=1),
-                    (slice(None), rows),
-                )
-        return
-
-    if single_step:
-        # Exactly one KV step per Q block (short-seq single-tile configs):
-        # plain softmax straight to the output — no (m, l, acc) scratch, no
-        # init pass, no alpha rescale. Cuts ~1/3 of the VPU work that
-        # dominates these shapes.
-        q = q_ref[...]
-        k = k_ref[...]
-        if kv_repeat > 1:  # GQA: expand kv heads to match the q head batch
-            k = jnp.repeat(k, kv_repeat, axis=0)
-        s = jax.lax.dot_general(
-            q, k, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        if softcap_in is not None:
-            # Gemma-style logit cap, rescaled so the downstream scale2-folded
-            # exp2 path applies unchanged: capped_logits/sm_scale.
-            s = jnp.tanh(s * softcap_in) * softcap_out
-        if causal or kv_pad or window is not None or seg_q_ref is not None:
-            ok = None
-            shape2d = s.shape[1:]
-            col = jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-            if causal or window is not None:
-                row = jax.lax.broadcasted_iota(jnp.int32, shape2d, 0) + diag_offset
-            if causal:
-                ok = col <= row
-            if window is not None:
-                vis = col > row - window
-                ok = vis if ok is None else jnp.logical_and(ok, vis)
-            if kv_pad:
-                inb = col < kv_len
-                ok = inb if ok is None else jnp.logical_and(ok, inb)
-            if seg_q_ref is not None:
-                same = seg_q_ref[0, 0][:, None] == seg_kv_ref[0, 0][None, :]
-                ok = same if ok is None else jnp.logical_and(ok, same)
-            s = jnp.where(ok[None], s, MASK_VALUE)
-        # M_FLOOR clamp: a fully-masked row's max is ~MASK_VALUE*scale2; the
-        # fma-fused exp2(s*scale2 - m) there has a +-1e28 rounding residual
-        # (exp2 of which can be inf -> NaN downstream). Flooring m makes
-        # masked rows underflow to exactly 0.
-        m = jnp.maximum(jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR)
-        p = jnp.exp2(s * scale2 - m)
-        l = jnp.sum(p, axis=-1, keepdims=True)
-        v = v_ref[...]
-        if kv_repeat > 1:
-            v = jnp.repeat(v, kv_repeat, axis=0)
-        # Normalize p BEFORE the PV matmul: scaling commutes with the dot,
-        # and multiplying the MXU accumulator output afterwards forces a
-        # relayout that costs ~10-14% of the whole step (measured on v5e,
-        # tools/epilogue_probe.py) — the [*, block_kv] pre-scale is free by
-        # comparison.
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        pv = jax.lax.dot_general(
-            (p * inv).astype(v.dtype), v, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        o_ref[...] = pv.astype(o_ref.dtype)
-        if lse_ref is not None:
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(safe_l))
-            lse_ref[...] = jnp.broadcast_to(lse2, lse_ref.shape)
-        return
-
-    @pl.when(is_first)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    def _online_body(masked: bool):
-        # Blocks carry a leading head-batch dim (block_h heads per grid step,
-        # usually 1; >1 at short seq to amortize per-step fixed costs — the
-        # TPU analog of the reference packing more CTAs per SM at short seq
-        # via MIN_BLOCKS=2, flash_attention.cu:618). Matmuls are batched over
-        # it; the VPU softmax ops batch for free.
-        q = q_ref[...]  # [hb, block_q, d]
-        k = k_ref[...]  # [hb_kv, block_kv, d]
-        if head_unroll:
-            # Per-head dependency chains (MHA only, trace-time gated): the
-            # batched form is ONE serial QK -> softmax -> PV chain per grid
-            # step, so the MXU idles through the whole VPU softmax phase.
-            # Issuing every head's QK matmul FIRST lets head h+1's matmul
-            # run while head h's softmax occupies the VPU; the PV matmuls
-            # queue behind. VMEM peak is unchanged — the batched score
-            # tile was [hb, block_q, block_kv] fp32 already.
-            v = v_ref[...]
-            heads_n = q.shape[0]
-            # GQA: q head h reads its group's single KV head (kv_repeat q
-            # heads per kv head) — no jnp.repeat materialization at all.
-            s_list = [
-                jax.lax.dot_general(
-                    q[h], k[h // kv_repeat], (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                for h in range(heads_n)
-            ]
-            ok = None
-            if masked and (causal or kv_pad or window is not None):
-                # Head-independent mask, built once and shared.
-                shape2d = (block_q, s_list[0].shape[-1])
-                col = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 1)
-                    + ikv * block_kv
-                )
-                if causal or window is not None:
-                    row = (
-                        jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                        + iq * block_q
-                        + diag_offset
-                    )
-                if causal:
-                    ok = col <= row
-                if window is not None:
-                    vis = col > row - window
-                    ok = vis if ok is None else jnp.logical_and(ok, vis)
-                if kv_pad:
-                    inb = col < kv_len
-                    ok = inb if ok is None else jnp.logical_and(ok, inb)
-            for h in range(heads_n):
-                s = s_list[h]
-                if softcap_in is not None:
-                    s = jnp.tanh(s * softcap_in) * softcap_out
-                if ok is not None:
-                    s = jnp.where(ok, s, MASK_VALUE)
-                m_prev = m_scr[h]  # [block_q, LANES]
-                l_prev = l_scr[h]
-                m_curr = jnp.maximum(
-                    jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR
-                )
-                m_next = jnp.maximum(m_prev, m_curr)
-                alpha = jnp.exp2(m_prev - m_next)
-                p = jnp.exp2(s * scale2 - m_next[:, :1])
-                l_next = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-                m_scr[h] = m_next
-                l_scr[h] = l_next
-                pv = jax.lax.dot_general(
-                    p.astype(v.dtype), v[h // kv_repeat],
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                acc_scr[h] = acc_scr[h] * alpha[:, :1] + pv
-            return
-        if kv_repeat > 1:  # GQA: expand kv heads to match the q head batch
-            # NOTE (measured, v5e 2026-08-17): this repeat is effectively
-            # FREE — Mosaic folds the head broadcast into the batched
-            # matmuls. The "commute the sum" alternative (reshape q to
-            # [hb_kv, group*block_q, d] against un-expanded KV, as the
-            # decode kernel does) measured 15-25% SLOWER at 8K GQA
-            # (154->117 TF causal, 179->156 nc): the in-kernel q reshape is
-            # not layout-free at prefill widths. Don't re-attempt.
-            k = jnp.repeat(k, kv_repeat, axis=0)
-        s = jax.lax.dot_general(
-            q,
-            k,
-            (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb(_kv), M, block_kv] raw scores; scale applied below.
-
-        if softcap_in is not None:
-            # Gemma-style logit cap, rescaled so the downstream scale2-folded
-            # exp2 path applies unchanged: capped_logits/sm_scale.
-            s = jnp.tanh(s * softcap_in) * softcap_out
-
-        # Masking is applied unconditionally when the config needs it at all:
-        # a fully-live tile evaluates to all-true and the select costs ~2%,
-        # whereas gating it behind lax.cond costs ~2x on Mosaic (the cond
-        # materializes both vector branches and breaks software pipelining).
-        # (With diag sub-tiling, interior steps are provably fully live and
-        # call this body with masked=False — no iota/compare/select at all.)
-        if masked and (
-            causal or kv_pad or window is not None or seg_q_ref is not None
-        ):
-            # The mask is head-independent: build it 2D and broadcast over
-            # the head-batch dim (hb x smaller iota/compare tiles in VMEM).
-            ok = None
-            shape2d = (block_q, s.shape[-1])
-            col = jax.lax.broadcasted_iota(jnp.int32, shape2d, 1) + ikv * block_kv
-            if causal or window is not None:
-                row = (
-                    jax.lax.broadcasted_iota(jnp.int32, shape2d, 0)
-                    + iq * block_q
-                    + diag_offset
-                )
-            if causal:
-                ok = col <= row
-            if window is not None:
-                vis = col > row - window
-                ok = vis if ok is None else jnp.logical_and(ok, vis)
-            if kv_pad:
-                inb = col < kv_len
-                ok = inb if ok is None else jnp.logical_and(ok, inb)
-            if seg_q_ref is not None:
-                same = seg_q_ref[0, 0][:, None] == seg_kv_ref[0, 0][None, :]
-                ok = same if ok is None else jnp.logical_and(ok, same)
-            s = jnp.where(ok[None], s, MASK_VALUE)
-
-        m_prev = m_scr[...]  # [hb, block_q, LANES]
-        l_prev = l_scr[...]
-        # scale2 = sm_scale*log2(e); applied to the row max (cheap, commutes
-        # with max since scale2 > 0) and fused into the exp2 elementwise
-        # chain (mul+sub+exp2 lower to one VPU pass) — avoids both a full
-        # score-tile multiply and a Q pre-scale HBM pass.
-        m_curr = jnp.maximum(
-            jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR
-        )  # [hb, block_q, 1]; M_FLOOR: see single-step branch comment.
-        m_next = jnp.maximum(m_prev, m_curr)  # [hb, block_q, LANES]
-        alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s * scale2 - m_next[:, :, :1])  # [hb, block_q, block_kv]
-        l_next = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        m_scr[...] = m_next
-        l_scr[...] = l_next
-
-        v = v_ref[...]  # [hb_kv, block_kv, d]
-        if kv_repeat > 1:
-            v = jnp.repeat(v, kv_repeat, axis=0)
-        pv = jax.lax.dot_general(
-            p.astype(v.dtype),
-            v,
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb(_kv), M, d]
-        acc_scr[...] = acc_scr[...] * alpha[:, :, :1] + pv
-
-    if diag_subtile:
-        # Multi-block causal diag sub-tiling: the tri grid's diagonal
-        # (partially-masked) step runs `diag_subtile`-row live-prefix MMAs
-        # merged into the online (m, l, acc) state, instead of one full-tile
-        # MMA that throws ~half its MXU work away; interior steps run the
-        # online body completely mask-free (enable conditions in _fwd_impl
-        # prove them fully live). Diagonal MXU waste drops from ~50% to
-        # ~1/(2n) for n = block_q / diag_subtile sub-blocks — the fix for
-        # the reference-style full-tile diagonal cost its fixed-BLOCK_N CTA
-        # tiling could never avoid (flash_attention.cu:620-661).
-        #
-        # FINAL-STEP FUSION: under the enable conditions the diagonal block
-        # is provably the LAST kv step of its q row (kv ascends and the
-        # block-aligned diagonal straddles every last block), so each
-        # sub-block merges the online state ONCE and writes the normalized
-        # output directly — no m/l/acc scratch writes, no separate epilogue
-        # pass re-reading 3 fp32 scratch tiles (measured before fusion: diag
-        # steps ran at ~58% of interior per-live-FLOP efficiency).
-        def _diag_body():
-            w = diag_subtile
-            q = q_ref[...]  # [hb, block_q, d]
-            k = k_ref[...]
-            v = v_ref[...]
-            if kv_repeat > 1:
-                k = jnp.repeat(k, kv_repeat, axis=0)
-                v = jnp.repeat(v, kv_repeat, axis=0)
-            kv_block = k.shape[1]
-            # Right-aligned additive mask (see the superblock subtile branch
-            # above): enable conditions force the diagonal to land on the
-            # block's local origin, so sub-block i's live prefix is exactly
-            # (i+1)*w columns and its mask is the [:, kv_block-width:] slice
-            # of ONE precomputed tile.
-            u = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 1)
-            r = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 0)
-            addmask = jnp.where(
-                u <= r + kv_block - w, 0.0, MASK_VALUE
-            ).astype(jnp.float32)
-            def qk_diag(i):
-                width = (i + 1) * w
-                qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-                ki = jax.lax.slice_in_dim(k, 0, width, axis=1)
-                return jax.lax.dot_general(
-                    qi, ki, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, width]
-
-            n_sub = block_q // w
-            if diag_pipe:
-                # 2-stage pipeline across sub-steps (see the superblock
-                # subtile branch above).
-                s_pipe = qk_diag(0)
-            for i in range(n_sub):
-                rows = slice(i * w, (i + 1) * w)
-                width = (i + 1) * w
-                if diag_pipe:
-                    s = s_pipe
-                    if i + 1 < n_sub:
-                        s_pipe = qk_diag(i + 1)
-                else:
-                    s = qk_diag(i)
-                if softcap_in is not None:
-                    s = jnp.tanh(s * softcap_in) * softcap_out
-                s = s + jax.lax.slice_in_dim(
-                    addmask, kv_block - width, kv_block, axis=1
-                )[None]
-                m_i = jnp.maximum(
-                    jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR
-                )  # [hb, w, 1]
-                vi = jax.lax.slice_in_dim(v, 0, width, axis=1)
-                if _DIAG_FUSE:
-                    # Minimal delta from the scratch-merge path: identical
-                    # math and layouts (LANES-wide stats, post-PV normalize
-                    # over d lanes — a width-wide p*inv prescale measured
-                    # 10-15% SLOWER here), but the merged rows go straight
-                    # to o_ref: no m/l/acc scratch writes, no epilogue pass
-                    # re-reading three fp32 scratch tiles.
-                    m_prev = m_scr[:, rows, :]  # [hb, w, LANES]
-                    m_next = jnp.maximum(m_prev, m_i)
-                    alpha = jnp.exp2(m_prev - m_next)
-                    p = jnp.exp2(s * scale2 - m_next[:, :, :1])
-                    l_next = alpha * l_scr[:, rows, :] + jnp.sum(
-                        p, axis=-1, keepdims=True
-                    )
-                    pv = jax.lax.dot_general(
-                        p.astype(vi.dtype), vi, (((2,), (1,)), ((0,), (0,))),
-                        preferred_element_type=jnp.float32,
-                    )  # [hb, w, d]
-                    # q block 0's only step can be the diagonal (is_first
-                    # too): then m_prev = -inf gives alpha = 0 and the acc
-                    # term vanishes — the init pass ordering above
-                    # guarantees the scratch was set before this read.
-                    acc_new = acc_scr[:, rows, :] * alpha[:, :, :1] + pv
-                    l1 = l_next[:, :, :1]
-                    inv = jnp.where(l1 == 0.0, 0.0, 1.0 / l1)
-                    o_ref[:, rows, :] = (acc_new * inv).astype(o_ref.dtype)
-                    if lse_ref is not None:
-                        safe_l = jnp.where(l1 == 0.0, 1.0, l1)
-                        lse2 = jnp.where(
-                            l1 == 0.0,
-                            -jnp.inf,
-                            m_next[:, :, :1] + jnp.log2(safe_l),
-                        )
-                        lse_ref[:, rows, :] = jnp.broadcast_to(
-                            lse2, (lse2.shape[0], w, lse_ref.shape[-1])
-                        )
-                else:
-                    m_prev = m_scr[:, rows, :]  # [hb, w, LANES]
-                    m_next = jnp.maximum(m_prev, m_i)
-                    alpha = jnp.exp2(m_prev - m_next)
-                    p = jnp.exp2(s * scale2 - m_next[:, :, :1])
-                    l_next = alpha * l_scr[:, rows, :] + jnp.sum(
-                        p, axis=-1, keepdims=True
-                    )
-                    m_scr[:, rows, :] = m_next
-                    l_scr[:, rows, :] = l_next
-                    pv = jax.lax.dot_general(
-                        p.astype(vi.dtype), vi, (((2,), (1,)), ((0,), (0,))),
-                        preferred_element_type=jnp.float32,
-                    )  # [hb, w, d]
-                    acc_scr[:, rows, :] = (
-                        acc_scr[:, rows, :] * alpha[:, :, :1] + pv
-                    )
-
-        def _lead_body():
-            # Leading window-edge block (window_lead enable conditions:
-            # square blocks, window % block_kv == 0, aligned diagonal).
-            # Under those, row j of the q block sees exactly the block-local
-            # columns AFTER j — the strict upper triangle, independent of
-            # iq. Sub-block i's live range is the SUFFIX [i*w, kv_block);
-            # one left-aligned [w, kv_block] additive tile masks the ragged
-            # first w columns of every slice (the mirror image of the
-            # diagonal's right-aligned prefix trick).
-            w = diag_subtile
-            q = q_ref[...]  # [hb, block_q, d]
-            k = k_ref[...]
-            v = v_ref[...]
-            if kv_repeat > 1:
-                k = jnp.repeat(k, kv_repeat, axis=0)
-                v = jnp.repeat(v, kv_repeat, axis=0)
-            kv_block = k.shape[1]
-            cc = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 1)
-            rr = jax.lax.broadcasted_iota(jnp.int32, (w, kv_block), 0)
-            addmask = jnp.where(cc > rr, 0.0, MASK_VALUE).astype(jnp.float32)
-
-            def qk_lead(i):
-                qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-                ki = jax.lax.slice_in_dim(k, i * w, kv_block, axis=1)
-                return jax.lax.dot_general(
-                    qi, ki, (((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, kv_block - i*w]
-
-            n_sub = block_q // w
-            if diag_pipe:
-                s_pipe = qk_lead(0)
-            for i in range(n_sub):
-                rows = slice(i * w, (i + 1) * w)
-                width = kv_block - i * w
-                if diag_pipe:
-                    s = s_pipe
-                    if i + 1 < n_sub:
-                        s_pipe = qk_lead(i + 1)
-                else:
-                    s = qk_lead(i)
-                if softcap_in is not None:
-                    s = jnp.tanh(s * softcap_in) * softcap_out
-                s = s + jax.lax.slice_in_dim(addmask, 0, width, axis=1)[None]
-                m_i = jnp.maximum(
-                    jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR
-                )  # [hb, w, 1]
-                m_prev = m_scr[:, rows, :]  # [hb, w, LANES]
-                m_next = jnp.maximum(m_prev, m_i)
-                alpha = jnp.exp2(m_prev - m_next)
-                p = jnp.exp2(s * scale2 - m_next[:, :, :1])
-                l_next = alpha * l_scr[:, rows, :] + jnp.sum(
-                    p, axis=-1, keepdims=True
-                )
-                m_scr[:, rows, :] = m_next
-                l_scr[:, rows, :] = l_next
-                vi = jax.lax.slice_in_dim(v, i * w, kv_block, axis=1)
-                pv = jax.lax.dot_general(
-                    p.astype(vi.dtype), vi, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )  # [hb, w, d]
-                acc_scr[:, rows, :] = acc_scr[:, rows, :] * alpha[:, :, :1] + pv
-
-        if packed_subtile:
-            # Packed runtime routing (bits from _packed_tri_enumeration):
-            # bit 16 = fully-live single-document interior (no mask at
-            # all), bit 32 = single-document diagonal whose live range is
-            # a local-origin prefix (doc-local causality == global
-            # causality for contiguous packing) — the fused sub-tiled
-            # diagonal applies verbatim. Everything else live (document
-            # boundaries, pad-straddling blocks) runs the generic masked
-            # body and keeps the scratch epilogue.
-            maskfree = jnp.logical_and(should_run, (flags & 16) != 0)
-            diagsub = jnp.logical_and(should_run, (flags & 32) != 0)
-            generic = jnp.logical_and(
-                should_run,
-                jnp.logical_and((flags & 16) == 0, (flags & 32) == 0),
-            )
-
-            @pl.when(maskfree)
-            def _interior():
-                _online_body(masked=False)
-
-            @pl.when(generic)
-            def _generic():
-                _online_body(masked=True)
-
-            @pl.when(diagsub)
-            def _diag():
-                _diag_body()
-        else:
-            is_lead = (flags & 64) != 0 if window_lead else None
-
-            if window_lead:
-                @pl.when(
-                    jnp.logical_and(
-                        jnp.logical_not(is_diag), jnp.logical_not(is_lead)
-                    )
-                )
-                def _interior():
-                    _online_body(masked=False)
-
-                @pl.when(is_lead)
-                def _lead():
-                    _lead_body()
-            else:
-                @pl.when(jnp.logical_not(is_diag))
-                def _interior():
-                    _online_body(masked=False)
-
-            @pl.when(is_diag)
-            def _diag():
-                _diag_body()
-
-        if _DIAG_FUSE and not packed_subtile:
-            return  # output written by the fused diagonal; no epilogue pass
-    else:
-        @pl.when(should_run)
-        def _compute():
-            _online_body(masked=True)
-
-    # Packed + fused diagonal: bit-32 steps wrote their rows directly; the
-    # epilogue runs only for q blocks whose last live step went through the
-    # generic masked body (document boundaries, pad blocks) — re-writing a
-    # fused q block from never-finalized scratch would corrupt it.
-    if diag_subtile and packed_subtile and _DIAG_FUSE:
-        epilogue_cond = jnp.logical_and(is_last, (flags & 32) == 0)
-    else:
-        epilogue_cond = is_last
-
-    @pl.when(epilogue_cond)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]  # [hb, block_q, 1]
-        # l == 0 → output 0 (reference guard flash_attention.cu:502-503).
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o_ref[...] = (acc_scr[...] * inv).astype(o_ref.dtype)
-        if lse_ref is not None:
-            m = m_scr[...][:, :, :1]
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(
-                l == 0.0, -jnp.inf, m + jnp.log2(safe_l)
-            )  # base-2 LSE (the split-KV merge contract)
-            lse_ref[...] = jnp.broadcast_to(lse2, lse_ref.shape)
-
-
-def _band_kernel(
-    q_ref,   # [hb, block_q, d]
-    kp_ref,  # [hb_kv, block_kv, d] previous kv block (iq-1, clamped)
-    kc_ref,  # [hb_kv, block_kv, d] current kv block (iq)
-    vp_ref,
-    vc_ref,
-    o_ref,
-    lse_ref,
-    *,
-    scale2: float,
-    block_q: int,
-    block_kv: int,
-    sub: int,
-    kv_repeat: int = 1,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
-    diag_pipe: bool = False,
-):
-    """Sliding-window band with window == block_kv: ONE grid step per q
-    block covers the whole band.
-
-    Each q row's live range spans exactly two consecutive kv blocks
-    ([iq-1, iq]); per `sub`-row sub-block the range is a SUFFIX of the
-    previous block (the _lead_body strict-upper triangle) plus a PREFIX of
-    the current one (the diagonal triangle), and the sub-block sees its
-    whole range at once — plain softmax over the two score pieces, no
-    online (m, l, acc) scratch, fused output write. This replaces the
-    two-grid-step lead+diag decomposition whose per-block merge chains ran
-    at ~45% of interior efficiency (w=1024 @16K measured 79 band-TF).
-    """
     iq = pl.program_id(1)
-    w = sub
+    if causal:
+        iq = num_q_blocks - 1 - iq  # heaviest tiles launch first
+    r0 = iq * block_q + (kv_len - q_len)
+    num_kv_blocks = kv_pad // block_kv
     q = q_ref[...]
-    kp = kp_ref[...]
-    kc = kc_ref[...]
-    vp = vp_ref[...]
-    vc = vc_ref[...]
-    if kv_repeat > 1:
-        kp = jnp.repeat(kp, kv_repeat, axis=0)
-        kc = jnp.repeat(kc, kv_repeat, axis=0)
-        vp = jnp.repeat(vp, kv_repeat, axis=0)
-        vc = jnp.repeat(vc, kv_repeat, axis=0)
-    # Lead mask (strict upper triangle, left-aligned slice) and diag mask
-    # (live prefix, right-aligned slice): both shift-invariant in the
-    # sub-block index — see _lead_body / _diag_body.
-    cc = jax.lax.broadcasted_iota(jnp.int32, (w, block_kv), 1)
-    rr = jax.lax.broadcasted_iota(jnp.int32, (w, block_kv), 0)
-    lead_mask = jnp.where(cc > rr, 0.0, MASK_VALUE).astype(jnp.float32)
-    diag_mask = jnp.where(
-        cc <= rr + block_kv - w, 0.0, MASK_VALUE
-    ).astype(jnp.float32)
-    # q block 0 has no previous block (its rows' windows start at or
-    # before position 0): kill the prev piece entirely.
-    prev_gate = jnp.where(iq > 0, 0.0, MASK_VALUE).astype(jnp.float32)
+    seg_q = segq_ref[...] if packed else None
+    rows = r0 + jnp.arange(block_q, dtype=jnp.int32)[:, None]
 
-    def qk_pair(i):
-        qi = jax.lax.slice_in_dim(q, i * w, (i + 1) * w, axis=1)
-        ks = jax.lax.slice_in_dim(kp, i * w, block_kv, axis=1)
-        s_a = jax.lax.dot_general(
-            qi, ks, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, w, block_kv - i*w]
-        kcs = jax.lax.slice_in_dim(kc, 0, (i + 1) * w, axis=1)
-        s_b = jax.lax.dot_general(
-            qi, kcs, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, w, (i+1)*w]
-        return s_a, s_b
+    def body(j, carry, masked):
+        acc, m, l = carry
+        start = j * block_kv
+        k = k_ref[pl.ds(start, block_kv), :]
+        s, _ = _logits(pl.dot(q, k, trans_b=True), sm_scale=sm_scale,
+                       softcap=softcap)
+        if masked:
+            cols = start + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
+            seg_kv = segkv_ref[pl.ds(start, block_kv)] if packed else None
+            ok = _visible(rows, cols, kv_len=kv_len, kv_pad=kv_pad,
+                          causal=causal, window=window, seg_q=seg_q,
+                          seg_kv=seg_kv)
+            if ok is not None:
+                s = jnp.where(ok, s, MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        l = alpha * l + jnp.sum(p, axis=1)
+        v = v_ref[pl.ds(start, block_kv), :]
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+        return acc, m_new, l
 
-    n_sub = block_q // w
-    if diag_pipe:
-        pipe = qk_pair(0)
-    for i in range(n_sub):
-        if diag_pipe:
-            s_a, s_b = pipe
-            if i + 1 < n_sub:
-                pipe = qk_pair(i + 1)
-        else:
-            s_a, s_b = qk_pair(i)
-        if softcap_in is not None:
-            s_a = jnp.tanh(s_a * softcap_in) * softcap_out
-            s_b = jnp.tanh(s_b * softcap_in) * softcap_out
-        wa = block_kv - i * w
-        wb = (i + 1) * w
-        s_a = s_a + jax.lax.slice_in_dim(lead_mask, 0, wa, axis=1)[None]
-        s_a = s_a + prev_gate
-        s_b = s_b + jax.lax.slice_in_dim(
-            diag_mask, block_kv - wb, block_kv, axis=1
-        )[None]
-        m = jnp.maximum(
-            jnp.maximum(
-                jnp.max(s_a, axis=-1, keepdims=True),
-                jnp.max(s_b, axis=-1, keepdims=True),
-            ) * scale2,
-            M_FLOOR,
-        )  # [hb, w, 1]
-        p_a = jnp.exp2(s_a * scale2 - m)
-        p_b = jnp.exp2(s_b * scale2 - m)
-        l = (
-            jnp.sum(p_a, axis=-1, keepdims=True)
-            + jnp.sum(p_b, axis=-1, keepdims=True)
-        )
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        vps = jax.lax.slice_in_dim(vp, i * w, block_kv, axis=1)
-        vcs = jax.lax.slice_in_dim(vc, 0, (i + 1) * w, axis=1)
-        pv = jax.lax.dot_general(
-            (p_a * inv).astype(vps.dtype), vps,
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) + jax.lax.dot_general(
-            (p_b * inv).astype(vcs.dtype), vcs,
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [hb, w, d]
-        rows = slice(i * w, (i + 1) * w)
-        o_ref[:, rows, :] = pv.astype(o_ref.dtype)
-        if lse_ref is not None:
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(safe_l))
-            lse_ref[:, rows, :] = jnp.broadcast_to(
-                lse2, (lse2.shape[0], w, lse_ref.shape[-1])
-            )
+    ranges = _kv_ranges(
+        r0, block_q=block_q, block_kv=block_kv, num_kv_blocks=num_kv_blocks,
+        kv_len=kv_len, causal=causal, window=window,
+        seg_bounds=(bounds_ref[0], bounds_ref[1]) if packed else None,
+    )
+    carry = (
+        jnp.zeros((block_q, q.shape[-1]), jnp.float32),
+        jnp.full((block_q,), M_FLOOR, jnp.float32),
+        jnp.zeros((block_q,), jnp.float32),
+    )
+    acc, m, l = tile_loop(ranges, body, carry, packed=packed)
+
+    empty = l == 0.0
+    l_safe = jnp.where(empty, 1.0, l)
+    o_ref[...] = (acc / l_safe[:, None]).astype(o_ref.dtype)
+    if lse_ref is not None:
+        lse_ref[...] = jnp.where(empty, -jnp.inf, m + jnp.log2(l_safe))
 
 
-def _packed_tri_enumeration(
-    seg_q, seg_kv, tri_iq, tri_ikv, tri_flags, *,
-    num_q_blocks, num_kv_blocks, block_q, block_kv, subtile_bits=False,
-):
-    """Runtime per-batch-row compaction of the static causal enumeration.
+def pad_segments(segments, q_len, q_pad, kv_len, kv_pad):
+    """Pad segment ids with distinct sentinels: padded rows and columns never
+    match anything."""
+    seg_q, seg_kv = segments
+    seg_q = jnp.pad(seg_q.astype(jnp.int32), ((0, 0), (0, q_pad - q_len)),
+                    constant_values=-1)
+    seg_kv = jnp.pad(seg_kv.astype(jnp.int32), ((0, 0), (0, kv_pad - kv_len)),
+                     constant_values=-2)
+    return seg_q, seg_kv
 
-    seg_q/seg_kv: [B, 1, S_pad] padded segment ids; tri_*: the static [T]
-    iq-major causal enumeration. Returns [B, T] (iq, ikv, flags) where live
-    steps come first (stable order, so iq-major contiguity and kv order
-    survive), the dead tail repeats the last live pair (clamped index maps
-    re-issue no DMA), and flags carry bit1 = first-live / bit2 = last-live
-    per q block, bit8 = dead. Liveness is block id-RANGE intersection —
-    exact for standard contiguous packing, conservative (never wrongly
-    dead) for arbitrary ids, since a shared id must lie in both ranges.
-    Diagonal (bit2) steps are forced live so every q block keeps its
-    init/epilogue and fully-masked rows still take the l==0 -> zeros /
-    lse=-inf contract instead of skipping the write.
+
+def segment_block_bounds(seg_q, seg_kv, block_q, block_kv, q_len, kv_len):
+    """Per-tile live ranges of packed inputs (ids padded to tile multiples;
+    the first q_len / kv_len columns are real).
+
+    Two tiles can share a segment only if the id ranges of their real rows
+    intersect. Returns ([B, nq, 2] first/last-exclusive KV tile per Q tile,
+    [B, nkv, 2] first/last-exclusive Q tile per KV tile). Exact for
+    contiguous packing, and never excludes a live tile for arbitrary ids
+    (everything between the first and last intersecting tile stays in range).
     """
-    batch = seg_q.shape[0]
-    sq_blk = seg_q[:, 0, :].reshape(batch, num_q_blocks, block_q)
-    skv_blk = seg_kv[:, 0, :].reshape(batch, num_kv_blocks, block_kv)
-    qmin, qmax = sq_blk.min(-1), sq_blk.max(-1)  # [B, nq]
-    kmin, kmax = skv_blk.min(-1), skv_blk.max(-1)  # [B, nk]
+    big = jnp.iinfo(jnp.int32).max
+
+    def id_range(ids, n, block):
+        real = jnp.arange(ids.shape[1]) < n
+        lo = jnp.where(real, ids, big).reshape(ids.shape[0], -1, block)
+        hi = jnp.where(real, ids, -big).reshape(ids.shape[0], -1, block)
+        return lo.min(-1), hi.max(-1)
+
+    q_lo, q_hi = id_range(seg_q, q_len, block_q)
+    k_lo, k_hi = id_range(seg_kv, kv_len, block_kv)
     live = jnp.logical_and(
-        qmin[:, tri_iq] <= kmax[:, tri_ikv],
-        kmin[:, tri_ikv] <= qmax[:, tri_iq],
-    )  # [B, T]
-    live = jnp.logical_or(live, ((tri_flags & 2) != 0)[None])
-    order = jnp.argsort(
-        jnp.logical_not(live).astype(jnp.int32), axis=1, stable=True
-    )
-    live2 = jnp.take_along_axis(live, order, 1)
-    iq2 = tri_iq[order]  # [B, T]
-    ikv2 = tri_ikv[order]
-    last_pos = (jnp.sum(live, axis=1, dtype=jnp.int32) - 1)[:, None]
-    iq2 = jnp.where(live2, iq2, jnp.take_along_axis(iq2, last_pos, 1))
-    ikv2 = jnp.where(live2, ikv2, jnp.take_along_axis(ikv2, last_pos, 1))
-    neg1 = jnp.full((batch, 1), -1, jnp.int32)
-    prev_iq = jnp.concatenate([neg1, iq2[:, :-1]], axis=1)
-    next_iq = jnp.concatenate([iq2[:, 1:], neg1], axis=1)
-    next_live = jnp.concatenate(
-        [live2[:, 1:], jnp.zeros((batch, 1), bool)], axis=1
-    )
-    first = jnp.logical_and(live2, iq2 != prev_iq)
-    last = jnp.logical_and(
-        live2, jnp.logical_or(iq2 != next_iq, jnp.logical_not(next_live))
-    )
-    flags2 = (
-        first.astype(jnp.int32)
-        + last.astype(jnp.int32) * 2
-        + jnp.logical_not(live2).astype(jnp.int32) * 8
-    )
-    if subtile_bits:
-        # Routing bits for the packed sub-tiled kernel (caller proves the
-        # static alignment: square blocks, block-aligned diagonal). A step
-        # is single-same-document when both blocks' id RANGES collapse to
-        # the same id (pad sentinels -1/-2 can never match). bit 16: fully
-        # live interior (not diagonal-straddling) — no mask of any kind.
-        # bit 32: single-document diagonal — for contiguous packing the
-        # document-local diagonal IS the global diagonal, so the fused
-        # sub-tiled diagonal body applies verbatim (and, being the last
-        # live step of its q block, its fused output write is final).
-        partial = (tri_flags & 4) != 0  # [T] static diagonal-straddle bit
-        same_doc = jnp.logical_and(
-            jnp.logical_and(
-                qmin[:, tri_iq] == qmax[:, tri_iq],
-                kmin[:, tri_ikv] == kmax[:, tri_ikv],
-            ),
-            qmin[:, tri_iq] == kmin[:, tri_ikv],
-        )  # [B, T]
-        maskfree = jnp.logical_and(
-            live, jnp.logical_and(jnp.logical_not(partial)[None], same_doc)
-        )
-        diagsub = jnp.logical_and(
-            live, jnp.logical_and(partial[None], same_doc)
-        )
-        extra = maskfree.astype(jnp.int32) * 16 + diagsub.astype(jnp.int32) * 32
-        extra2 = jnp.take_along_axis(extra, order, 1)
-        flags2 = flags2 + jnp.where(live2, extra2, 0)
-    return iq2, ikv2, flags2
+        q_lo[:, :, None] <= k_hi[:, None, :],
+        k_lo[:, None, :] <= q_hi[:, :, None],
+    )  # [B, nq, nkv]
+
+    def bounds(x):
+        n = x.shape[-1]
+        any_live = jnp.any(x, axis=-1)
+        first = jnp.argmax(x, axis=-1)
+        last = n - jnp.argmax(x[..., ::-1], axis=-1)
+        first = jnp.where(any_live, first, 0)
+        last = jnp.where(any_live, last, 0)
+        return jnp.stack([first, last], axis=-1).astype(jnp.int32)
+
+    return bounds(live), bounds(jnp.swapaxes(live, 1, 2))
 
 
 def _fwd_impl(
@@ -1019,638 +262,102 @@ def _fwd_impl(
     """
     batch, num_q_heads, q_len, head_dim = q.shape
     _, num_kv_heads, kv_len, _ = k.shape
+    group = num_q_heads // num_kv_heads
+    bs = clamp_to_seq(block_sizes, q_len, kv_len)
+    block_q, block_kv = bs.block_q, bs.block_kv
+    q_pad = ceil_to(q_len, block_q)
+    kv_pad = ceil_to(kv_len, block_kv)
+    d_pad = max(16, next_pow2(head_dim))
+    num_q_blocks = q_pad // block_q
 
-    block_q = min(block_sizes.block_q, _ceil_to(q_len, 128))
-    block_kv = min(block_sizes.block_kv, _ceil_to(kv_len, 128))
-
-    # Collapse [B, H, S, D] -> [B*H, S, D] (free for contiguous inputs);
-    # pad seq/head_dim to block multiples only when needed.
     qq = q.reshape(batch * num_q_heads, q_len, head_dim)
     kk = k.reshape(batch * num_kv_heads, kv_len, head_dim)
     vv = v.reshape(batch * num_kv_heads, kv_len, head_dim)
-
-    q_pad = _ceil_to(q_len, block_q)
-    kv_padded = _ceil_to(kv_len, block_kv)
-    if head_dim == 64 and block_sizes.d64_unpadded:
-        d_pad = 64  # block minor dim equals the array dim — no HBM zero-pad
-    else:
-        d_pad = _ceil_to(head_dim, 128)
     if q_pad != q_len or d_pad != head_dim:
         qq = jnp.pad(qq, ((0, 0), (0, q_pad - q_len), (0, d_pad - head_dim)))
-    if kv_padded != kv_len or d_pad != head_dim:
-        kk = jnp.pad(kk, ((0, 0), (0, kv_padded - kv_len), (0, d_pad - head_dim)))
-        vv = jnp.pad(vv, ((0, 0), (0, kv_padded - kv_len), (0, d_pad - head_dim)))
+    if kv_pad != kv_len or d_pad != head_dim:
+        pads = ((0, 0), (0, kv_pad - kv_len), (0, d_pad - head_dim))
+        kk = jnp.pad(kk, pads)
+        vv = jnp.pad(vv, pads)
 
-    num_q_blocks = q_pad // block_q
-    num_kv_blocks = kv_padded // block_kv
-    group = num_q_heads // num_kv_heads
-    diag_offset = kv_len - q_len
+    def q_tile(i):
+        return num_q_blocks - 1 - i if causal else i
 
-    if segments is not None:
-        seg_q, seg_kv = segments
-        # Distinct pad sentinels: padded rows/cols never match anything.
-        # [B, 1, S] with a unit middle dim: Mosaic requires the last two
-        # block dims to divide (8, 128) or EQUAL the array dims — (1, 1,
-        # block) over [B, 1, S] satisfies that where (1, block) over [B, S]
-        # does not (TPU-only lowering constraint).
-        seg_q = jnp.pad(
-            seg_q.astype(jnp.int32), ((0, 0), (0, q_pad - q_len)),
-            constant_values=-1,
-        )[:, None, :]
-        seg_kv = jnp.pad(
-            seg_kv.astype(jnp.int32), ((0, 0), (0, kv_padded - kv_len)),
-            constant_values=-2,
-        )[:, None, :]
-
-    # LSE residual width: 1 lane (lse_narrow) or LANES-broadcast. The kernel
-    # writes broadcast_to(lse2, lse_ref.shape) either way; only the out
-    # block/shape change, and the [:, :, 0] consumer slice works for both.
-    lse_lanes = 1 if block_sizes.lse_narrow else LANES
-
-    # Head-batching (block_h heads per grid step). MHA: any block_h dividing
-    # batch*heads. GQA: block_h must span whole KV groups within one batch
-    # element (kv heads expand in-kernel via jnp.repeat — a cheap VPU copy
-    # next to the matmuls it feeds).
-    hb = max(block_sizes.block_h, 1)
-    if segments is not None:
-        # Segment ids are per BATCH element: a head-block must not straddle
-        # two batch rows (its mask would differ inside the block).
-        while hb > 1 and num_q_heads % hb:
-            hb //= 2
-    if group == 1:
-        # Step down to the largest power-of-two batch that divides the head
-        # count (small models shouldn't fall straight to unbatched heads).
-        while hb > 1 and (batch * num_q_heads) % hb:
-            hb //= 2
-        hb_kv = hb
-    else:
-        while hb > group and (hb % group or num_q_heads % hb):
-            hb //= 2
-        if hb % group == 0 and num_q_heads % hb == 0:
-            hb_kv = hb // group
-        else:
-            hb = 1
-            hb_kv = 1
-    num_h_blocks = (batch * num_q_heads) // hb
-
-    def kv_head_index(bh):
-        if group == 1:
-            return bh
+    def kv_row(bh):
         return (bh // num_q_heads) * num_kv_heads + (bh % num_q_heads) // group
 
-    def batch_index(bh):
-        # Which batch row a head-block belongs to (segments guarantee the
-        # block doesn't straddle rows via the hb step-down above).
-        return (bh * hb) // num_q_heads
-
-    # Plain-softmax specialization: with a SINGLE KV block, every grid step
-    # sees its Q rows' whole KV range at once, so the online-softmax state
-    # (m, l, acc scratch + init/epilogue passes) disappears — regardless of
-    # how many Q blocks tile the rows. Causal keeps the one-Q-block
-    # requirement (its in-kernel mask row offset assumes iq == 0).
-    single = num_kv_blocks == 1 and (not causal or num_q_blocks == 1)
-    # Causal single-superblock sub-tiling (see _fwd_kernel's subtile branch):
-    # applies when the whole problem is one block pair and the diagonal
-    # decomposes into block_sub-row live-prefix MMAs. Sliding window keeps
-    # the generic masked path (its live range is not a prefix).
-    subtile = 0
-    if (
-        causal and single and window is None
-        and block_sizes.block_sub and block_q > block_sizes.block_sub
-        and block_q % block_sizes.block_sub == 0
-    ):
-        subtile = block_sizes.block_sub
-    # Multi-block causal diag sub-tiling (see _fwd_kernel's diag_subtile
-    # branch). Enable conditions prove two static facts the kernel relies on:
-    # (a) every diagonal block's live region is a local-origin-aligned prefix
-    # of static width (block_q == block_kv and a block-aligned diag offset
-    # put the diagonal at local offset 0), and (b) every non-diagonal tri
-    # step is fully live (no kv padding / window / segments), so interior
-    # steps skip masking entirely.
-    diag_subtile = 0
-    window_lead = False
-    packed_subtile = False
-    diag_base_ok = (
-        causal and not single and not subtile
-        and block_sizes.block_sub
-        and kv_padded == kv_len and q_pad == q_len
-        and block_q == block_kv and diag_offset % block_kv == 0
-        # block_sub == block_q is the degenerate one-sub-block form: one
-        # full-width MMA with the precomputed additive mask + the fused
-        # normalized write (no scratch epilogue) — worth sweeping against
-        # the finer widths because each sub-block pays VPU fixed costs.
-        and block_q >= block_sizes.block_sub
-        and block_q % block_sizes.block_sub == 0
-        # VMEM gate: the diag branch's sub-tiles live alongside the interior
-        # branch's full score tile and the hb-scaled (m, l, acc) scratch;
-        # hb*block_q rows beyond 2048 exceed scoped VMEM (measured: h2@1024
-        # and h4@512 compile standalone, h8@512 OOMs by 3.7M — a shape the
-        # short-seq superblock configs reach via chunked prefill, where
-        # min(q_len, kv_len) keys the dispatch but kv spans many blocks).
-        # The d64-unpadded path halves every d-scaled tile, buying one
-        # more doubling of rows-per-step.
-        and hb * block_q <= (4096 if d_pad <= 64 else 2048)
-    )
-    if diag_base_ok and window is None and segments is None:
-        diag_subtile = block_sizes.block_sub
-    elif (
-        diag_base_ok and window is not None and segments is None
-        and window % block_kv == 0
-    ):
-        # Sliding-window band: with the window a block multiple (and the
-        # aligned square blocks diag_base_ok proves), each q row's live
-        # band is [lead | fully-live interiors | diagonal]: the diagonal
-        # is never window-cut, interiors need no mask at all, and the
-        # leading edge is the strict-upper-triangle block _lead_body
-        # sub-tiles (see the kernel).
-        diag_subtile = block_sizes.block_sub
-        window_lead = True
-    elif diag_base_ok and window is None and segments is not None:
-        # Packed: routing bits come from the runtime enumeration (only
-        # meaningful when packed_skip actually engages below).
-        diag_subtile = block_sizes.block_sub
-        packed_subtile = True
-
-
-    # Sliding-window band fast path (window == block_kv): one grid step per
-    # q block covers the whole band via two kv refs (previous + current
-    # block of the SAME arrays) — plain per-sub-block softmax, no online
-    # scratch, no lead/diag merge chains (see _band_kernel).
-    band = (
-        causal and window is not None and segments is None
-        and window == block_kv and block_q == block_kv
-        and q_pad == q_len and kv_padded == kv_len
-        and diag_offset == 0 and num_kv_blocks > 1
-        and num_q_blocks == num_kv_blocks
-        and block_sizes.block_sub
-        and block_q % block_sizes.block_sub == 0
-        and block_q > block_sizes.block_sub
-    )
-    if band:
-        kv_rep = hb // hb_kv if hb_kv != hb else 1
-
-        def kv_band_spec(shift):
-            return pl.BlockSpec(
-                (hb_kv, block_kv, d_pad),
-                lambda bh, iq, s=shift: (
-                    (bh if hb > 1 or group == 1 else kv_head_index(bh)),
-                    jnp.maximum(iq - s, 0),
-                    0,
-                ),
-            )
-
-        band_q_spec = pl.BlockSpec(
-            (hb, block_q, d_pad), lambda bh, iq: (bh, iq, 0)
+    in_specs = [
+        pl.BlockSpec((None, block_q, d_pad), lambda bh, i: (bh, q_tile(i), 0)),
+        pl.BlockSpec((None, kv_pad, d_pad), lambda bh, i: (kv_row(bh), 0, 0)),
+        pl.BlockSpec((None, kv_pad, d_pad), lambda bh, i: (kv_row(bh), 0, 0)),
+    ]
+    inputs = [qq, kk, vv]
+    packed = segments is not None
+    if packed:
+        seg_q, seg_kv = pad_segments(segments, q_len, q_pad, kv_len, kv_pad)
+        q_bounds, _ = segment_block_bounds(
+            seg_q, seg_kv, block_q, block_kv, q_len, kv_len
         )
-        band_out_specs = [band_q_spec]
-        band_out_shapes = [
-            jax.ShapeDtypeStruct((batch * num_q_heads, q_pad, d_pad), q.dtype)
+        b_of = lambda bh: bh // num_q_heads  # noqa: E731
+        in_specs += [
+            pl.BlockSpec((None, block_q), lambda bh, i: (b_of(bh), q_tile(i))),
+            pl.BlockSpec((None, kv_pad), lambda bh, i: (b_of(bh), 0)),
+            pl.BlockSpec((None, None, 2),
+                         lambda bh, i: (b_of(bh), q_tile(i), 0)),
         ]
-        if save_residuals:
-            band_out_specs.append(
-                pl.BlockSpec(
-                    (hb, block_q, lse_lanes), lambda bh, iq: (bh, iq, 0)
-                )
-            )
-            band_out_shapes.append(
-                jax.ShapeDtypeStruct(
-                    (batch * num_q_heads, q_pad, lse_lanes), jnp.float32
-                )
-            )
-        band_kernel = functools.partial(
-            _band_kernel,
-            scale2=sm_scale * LOG2E,
-            block_q=block_q,
-            block_kv=block_kv,
-            sub=block_sizes.block_sub,
-            kv_repeat=kv_rep,
-            softcap_in=None if softcap is None else sm_scale / softcap,
-            softcap_out=None if softcap is None else softcap / sm_scale,
-            diag_pipe=block_sizes.diag_pipe,
-        )
+        inputs += [seg_q, seg_kv, q_bounds]
 
-        def band_wrapped(q_r, kp_r, kc_r, vp_r, vc_r, o_r, *rest):
-            band_kernel(
-                q_r, kp_r, kc_r, vp_r, vc_r, o_r,
-                rest[0] if save_residuals else None,
-            )
-
-        results = pl.pallas_call(
-            band_wrapped,
-            grid=(num_h_blocks, num_q_blocks),
-            in_specs=[
-                band_q_spec, kv_band_spec(1), kv_band_spec(0),
-                kv_band_spec(1), kv_band_spec(0),
-            ],
-            out_specs=band_out_specs,
-            out_shape=band_out_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(qq, kk, kk, vv, vv)
-        out = results[0][:, :q_len, :head_dim].reshape(
-            batch, num_q_heads, q_len, head_dim
-        )
-        if save_residuals:
-            lse2 = results[1][:, :q_len, 0].reshape(
-                batch, num_q_heads, q_len
-            )
-            return out, lse2
-        return out
-
-    # Causal: enumerate only the LIVE (iq, ikv) pairs as the grid's second
-    # axis, mapped through scalar-prefetch index arrays. Fully-masked blocks
-    # never become grid steps at all — the TPU-idiomatic version of the
-    # reference's grid-swap/reversed-Q causal balancing (flash_attention.cu:
-    # 103-111), but stronger: the reference still launched the masked CTAs.
-    tri = causal
-    packed_skip = False
-    num_steps = 0
-    if tri:
-        iq_list, ikv_list, flag_list = [], [], []
-        for iq_i in range(num_q_blocks):
-            last_live = min(
-                ((iq_i + 1) * block_q - 1 + diag_offset) // block_kv,
-                num_kv_blocks - 1,
-            )
-            first_live = 0
-            if window is not None:
-                # Earliest column any row of this Q block can see.
-                first_live = max(
-                    0, (iq_i * block_q + diag_offset - window + 1) // block_kv
-                )
-            for ikv_i in range(first_live, last_live + 1):
-                iq_list.append(iq_i)
-                ikv_list.append(ikv_i)
-                # Bit 4: the block straddles the diagonal (some entries
-                # masked) — the diag-subtile kernel branches on it.
-                partial = (
-                    (ikv_i + 1) * block_kv - 1 > iq_i * block_q + diag_offset
-                )
-                # Bit 64: the block holds the window's ragged leading edge
-                # (only consumed when the window_lead sub-tiled path is
-                # enabled; its alignment conditions make the edge land in
-                # exactly one non-diagonal block per q row).
-                lead = (
-                    window is not None
-                    and not partial
-                    and ikv_i == first_live
-                    and iq_i * block_q + diag_offset - window >= 0
-                )
-                flag_list.append(
-                    (1 if ikv_i == first_live else 0)
-                    | (2 if ikv_i == last_live else 0)
-                    | (4 if partial else 0)
-                    | (64 if lead else 0)
-                )
-        tri_iq = jnp.asarray(iq_list, jnp.int32)
-        tri_ikv = jnp.asarray(ikv_list, jnp.int32)
-        tri_flags = jnp.asarray(flag_list, jnp.int32)
-        num_steps = len(iq_list)
-
-        # Packed-sequence block skipping (splash-attention-class): with
-        # segment ids on a multi-block causal grid, most (iq, ikv) pairs are
-        # fully cross-document — provably all-masked. The static enumeration
-        # above is the worst case; here it becomes a RUNTIME per-batch-row
-        # [B, T] enumeration computed from the segment ids: live steps
-        # compacted to the front (stable, so iq-major contiguity and kv
-        # order survive), the dead tail clamped to the last live pair so its
-        # index maps re-issue no DMA, flag bit 8 marking it no-op. T stays
-        # the static worst case — ONE compile serves every packing layout.
-        # Liveness is block id-RANGE intersection: exact for standard
-        # contiguous packing, conservative (never wrongly dead) for
-        # arbitrary ids, since a common id would lie in both ranges.
-        # (num_steps > num_q_blocks also rules out every single-step /
-        # single-KV-block shape, where the kernel's plain-softmax branches
-        # bypass the flag machinery.)
-        packed_skip = segments is not None and num_steps > num_q_blocks
-        if packed_skip:
-            tri_iq, tri_ikv, tri_flags = _packed_tri_enumeration(
-                seg_q, seg_kv, tri_iq, tri_ikv, tri_flags,
-                num_q_blocks=num_q_blocks, num_kv_blocks=num_kv_blocks,
-                block_q=block_q, block_kv=block_kv,
-                subtile_bits=packed_subtile,
-            )
-            # Flat [B*T] prefetch arrays (flat-with-computed-offset is the
-            # paged kernels' proven on-chip indexing pattern).
-            tri_iq = tri_iq.reshape(-1)
-            tri_ikv = tri_ikv.reshape(-1)
-            tri_flags = tri_flags.reshape(-1)
-
-        if packed_skip:
-            # batch_index(bh) picks the row of the runtime enumeration (the
-            # segments hb step-down guarantees a head block never straddles
-            # two batch rows).
-            T = num_steps
-
-            q_spec = pl.BlockSpec(
-                (hb, block_q, d_pad),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    bh, iq_m[batch_index(bh) * T + t], 0
-                ),
-            )
-            k_spec = pl.BlockSpec(
-                (hb_kv, block_kv, d_pad),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    (bh if hb > 1 or group == 1 else kv_head_index(bh)),
-                    ikv_m[batch_index(bh) * T + t],
-                    0,
-                ),
-            )
-            o_spec = pl.BlockSpec(
-                (hb, block_q, d_pad),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    bh, iq_m[batch_index(bh) * T + t], 0
-                ),
-            )
-            lse_spec = pl.BlockSpec(
-                (hb, block_q, lse_lanes),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    bh, iq_m[batch_index(bh) * T + t], 0
-                ),
-            )
-            seg_q_spec = pl.BlockSpec(
-                (1, 1, block_q),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    batch_index(bh), 0, iq_m[batch_index(bh) * T + t]
-                ),
-            )
-            seg_kv_spec = pl.BlockSpec(
-                (1, 1, block_kv),
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    batch_index(bh), 0, ikv_m[batch_index(bh) * T + t]
-                ),
-            )
-        else:
-            q_spec = pl.BlockSpec(
-                (hb, block_q, d_pad),
-                lambda bh, t, iq_m, ikv_m, f_m: (bh, iq_m[t], 0),
-            )
-            k_spec = pl.BlockSpec(
-                (hb_kv, block_kv, d_pad),
-                # hb > 1 spans whole KV groups, so block index bh maps 1:1
-                # onto the hb_kv-blocked KV array; only unbatched GQA needs
-                # the per-head mapping.
-                lambda bh, t, iq_m, ikv_m, f_m: (
-                    (bh if hb > 1 or group == 1 else kv_head_index(bh)),
-                    ikv_m[t],
-                    0,
-                ),
-            )
-            o_spec = pl.BlockSpec(
-                (hb, block_q, d_pad),
-                lambda bh, t, iq_m, ikv_m, f_m: (bh, iq_m[t], 0),
-            )
-            lse_spec = pl.BlockSpec(
-                (hb, block_q, lse_lanes),
-                lambda bh, t, iq_m, ikv_m, f_m: (bh, iq_m[t], 0),
-            )
-            seg_q_spec = pl.BlockSpec(
-                (1, 1, block_q),
-                lambda bh, t, iq_m, ikv_m, f_m: (batch_index(bh), 0, iq_m[t]),
-            )
-            seg_kv_spec = pl.BlockSpec(
-                (1, 1, block_kv),
-                lambda bh, t, iq_m, ikv_m, f_m: (batch_index(bh), 0, ikv_m[t]),
-            )
-        grid = (num_h_blocks, num_steps)
-        dim_semantics = ("parallel", "arbitrary")
-    else:
-        # Non-causal (tri = causal, so every causal call takes the tri
-        # branch above). Without segments every (iq, ikv) pair is live and
-        # the index maps are plain. With packed segments on a multi-KV-block
-        # grid the dense walk is gated through a prefetched liveness table
-        # (encoder-style packed batches): dead cross-document blocks skip
-        # their MMAs in-kernel, and the KV index maps clamp their DMA into
-        # the [first, last]-live band per (batch row, iq) — the same
-        # pattern as the backward grids.
-        packed_skip = segments is not None and num_kv_blocks > 1
-        if packed_skip:
-            sq_blk = seg_q[:, 0, :].reshape(batch, num_q_blocks, block_q)
-            skv_blk = seg_kv[:, 0, :].reshape(batch, num_kv_blocks, block_kv)
-            qmin, qmax = sq_blk.min(-1), sq_blk.max(-1)
-            kmin, kmax = skv_blk.min(-1), skv_blk.max(-1)
-            nc_live = jnp.logical_and(
-                qmin[:, :, None] <= kmax[:, None, :],
-                kmin[:, None, :] <= qmax[:, :, None],
-            ).astype(jnp.int32)  # [B, nq, nkv]
-            nc_first = jnp.argmax(nc_live, axis=2).astype(jnp.int32)
-            nc_last = (
-                num_kv_blocks - 1 - jnp.argmax(nc_live[:, :, ::-1], axis=2)
-            ).astype(jnp.int32)
-            # Flat prefetch arrays (proven on-chip indexing pattern).
-            nc_live = nc_live.reshape(-1)
-            nc_first = nc_first.reshape(-1)
-            nc_last = nc_last.reshape(-1)
-
-        def nc_kv_block(bh, iq, ikv, *refs):
-            if not packed_skip:
-                return ikv
-            bq = batch_index(bh) * num_q_blocks + iq
-            return jnp.clip(ikv, refs[1][bq], refs[2][bq])
-
-        q_spec = pl.BlockSpec(
-            (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-        )
-        k_spec = pl.BlockSpec(
-            (hb_kv, block_kv, d_pad),
-            lambda bh, iq, ikv, *r: (
-                (bh if hb > 1 or group == 1 else kv_head_index(bh)),
-                nc_kv_block(bh, iq, ikv, *r),
-                0,
-            ),
-        )
-        o_spec = pl.BlockSpec(
-            (hb, block_q, d_pad), lambda bh, iq, ikv, *r: (bh, iq, 0)
-        )
-        lse_spec = pl.BlockSpec(
-            (hb, block_q, lse_lanes), lambda bh, iq, ikv, *r: (bh, iq, 0)
-        )
-        seg_q_spec = pl.BlockSpec(
-            (1, 1, block_q), lambda bh, iq, ikv, *r: (batch_index(bh), 0, iq)
-        )
-        seg_kv_spec = pl.BlockSpec(
-            (1, 1, block_kv),
-            lambda bh, iq, ikv, *r: (
-                batch_index(bh), 0, nc_kv_block(bh, iq, ikv, *r)
-            ),
-        )
-        grid = (num_h_blocks, num_q_blocks, num_kv_blocks)
-        dim_semantics = ("parallel", "parallel", "arbitrary")
-
-    v_spec = k_spec
-    in_specs = [q_spec, k_spec, v_spec]
-    call_inputs = [qq, kk, vv]
-    if segments is not None:
-        in_specs += [seg_q_spec, seg_kv_spec]
-        call_inputs += [seg_q, seg_kv]
-    out_shapes = [
-        jax.ShapeDtypeStruct((batch * num_q_heads, q_pad, d_pad), q.dtype),
+    out_specs = [
+        pl.BlockSpec((None, block_q, d_pad), lambda bh, i: (bh, q_tile(i), 0))
     ]
-    out_specs = [o_spec]
+    out_shape = [
+        jax.ShapeDtypeStruct((batch * num_q_heads, q_pad, d_pad), q.dtype)
+    ]
     if save_residuals:
-        out_shapes.append(
-            jax.ShapeDtypeStruct(
-                (batch * num_q_heads, q_pad, lse_lanes), jnp.float32
-            )
+        out_specs.append(
+            pl.BlockSpec((None, block_q), lambda bh, i: (bh, q_tile(i)))
         )
-        out_specs.append(lse_spec)
-
-    kv_repeat = hb // hb_kv if hb_kv != hb else 1
-    # Per-head chain unrolling (see _online_body): requires a
-    # head-independent mask (no segments); GQA q heads index their group's
-    # KV head directly (h // kv_repeat), no expansion.
-    head_unroll = (
-        block_sizes.head_unroll and hb > 1 and segments is None
-    )
-
-    def make_kernel(tri_refs, nc_live_ref=None):
-        return functools.partial(
-            _fwd_kernel,
-            nc_live_ref=nc_live_ref,
-            causal=causal,
-            scale2=sm_scale * LOG2E,
-            q_len=q_len,
-            kv_len=kv_len,
-            block_q=block_q,
-            block_kv=block_kv,
-            num_kv_blocks=num_kv_blocks,
-            kv_pad=kv_padded != kv_len,
-            tri_refs=tri_refs,
-            single_step=single,
-            kv_repeat=kv_repeat,
-            window=window,
-            softcap_in=None if softcap is None else sm_scale / softcap,
-            softcap_out=None if softcap is None else softcap / sm_scale,
-            subtile=subtile,
-            diag_subtile=diag_subtile,
-            head_unroll=head_unroll,
-            diag_pipe=block_sizes.diag_pipe,
-            window_lead=window_lead,
-            packed_subtile=packed_subtile and packed_skip,
-            packed=packed_skip,
-            packed_hb=hb,
-            packed_heads=num_q_heads,
-            packed_T=num_steps if tri else 0,
-            nc_nq=num_q_blocks,
+        out_shape.append(
+            jax.ShapeDtypeStruct((batch * num_q_heads, q_pad), jnp.float32)
         )
 
-    def make_wrapped(
-        tri_mode: bool, with_lse: bool, with_scratch: bool, with_segs: bool,
-        nc_packed: bool,
-    ):
-        def wrapped(*refs):
-            idx = 3 if (tri_mode or nc_packed) else 0
-            tri_r = refs[:3] if tri_mode else None
-            # Non-causal packed: the 3 prefetch refs are (live, first, last);
-            # the kernel gates on live, the index maps use first/last.
-            nc_live = refs[0] if nc_packed else None
-            q_r, k_r, v_r = refs[idx : idx + 3]
-            idx += 3
-            if with_segs:
-                sq_r, skv_r = refs[idx : idx + 2]
-                idx += 2
-            else:
-                sq_r = skv_r = None
-            o_r = refs[idx]
-            idx += 1
-            lse_r = refs[idx] if with_lse else None
-            idx += 1 if with_lse else 0
-            scr = refs[idx : idx + 3] if with_scratch else (None, None, None)
-            make_kernel(tri_r, nc_live)(
-                q_r, k_r, v_r, sq_r, skv_r, o_r, lse_r, *scr
-            )
-
-        return wrapped
-
-    nc_packed = (not tri) and packed_skip
-    wrapped = make_wrapped(
-        tri, save_residuals, not single, segments is not None, nc_packed
+    kernel = functools.partial(
+        _fwd_kernel,
+        sm_scale=sm_scale, causal=causal, window=window, softcap=softcap,
+        packed=packed, save_residuals=save_residuals, q_len=q_len,
+        kv_len=kv_len, kv_pad=kv_pad, block_q=block_q, block_kv=block_kv,
+        num_q_blocks=num_q_blocks,
     )
-
-    # The single-block branches (subtile / single_step) never touch the
-    # online-softmax state; skip allocating it (up to ~3 MB VMEM back).
-    scratch_shapes = [] if single else [
-        pltpu.VMEM((hb, block_q, LANES), jnp.float32),  # running max m
-        pltpu.VMEM((hb, block_q, LANES), jnp.float32),  # running sum l
-        pltpu.VMEM((hb, block_q, d_pad), jnp.float32),  # output accumulator
-    ]
-    flops_per_bh = 4 * q_len * kv_len * head_dim // (2 if causal else 1)
-    cost = pl.CostEstimate(
-        flops=batch * num_q_heads * flops_per_bh,
-        bytes_accessed=(
-            q.size * q.dtype.itemsize
-            + k.size * k.dtype.itemsize * 2
-            + q.size * q.dtype.itemsize
-        ),
-        transcendentals=batch * num_q_heads * q_len * kv_len,
-    )
-
-    if tri:
+    with jax.named_scope("flash_attention_fwd"):
         results = pl.pallas_call(
-            wrapped,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=grid,
-                in_specs=in_specs,
-                out_specs=out_specs,
-                scratch_shapes=scratch_shapes,
-            ),
-            out_shape=out_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=dim_semantics,
-            ),
-            cost_estimate=cost,
-            interpret=interpret,
-        )(tri_iq, tri_ikv, tri_flags, *call_inputs)
-    elif nc_packed:
-        results = pl.pallas_call(
-            wrapped,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=grid,
-                in_specs=in_specs,
-                out_specs=out_specs,
-                scratch_shapes=scratch_shapes,
-            ),
-            out_shape=out_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=dim_semantics,
-            ),
-            cost_estimate=cost,
-            interpret=interpret,
-        )(nc_live, nc_first, nc_last, *call_inputs)
-    else:
-        results = pl.pallas_call(
-            wrapped,
-            grid=grid,
+            kernel,
+            grid=(batch * num_q_heads, num_q_blocks),
             in_specs=in_specs,
             out_specs=out_specs,
-            out_shape=out_shapes,
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=dim_semantics,
-            ),
-            cost_estimate=cost,
+            out_shape=out_shape,
+            compiler_params=triton_params(bs.num_warps, bs.num_stages),
             interpret=interpret,
-        )(*call_inputs)
+            backend="triton",
+            name="flash_attention_fwd",
+        )(*inputs)
 
-    out = results[0][:, :q_len, :head_dim].reshape(batch, num_q_heads, q_len, head_dim)
+    out = results[0][:, :q_len, :head_dim].reshape(
+        batch, num_q_heads, q_len, head_dim
+    )
     if save_residuals:
-        lse2 = results[1][:, :q_len, 0].reshape(batch, num_q_heads, q_len)
+        lse2 = results[1][:, :q_len].reshape(batch, num_q_heads, q_len)
         return out, lse2
     return out
 
 
 # Custom VJP: the forward saves (q, k, v, out, lse2); the backward runs the
-# fused Pallas dq / dkv kernels (ops/attention_bwd.py). The reference has no
+# Triton dq / dkv kernels (ops/attention_bwd.py). The reference has no
 # backward at all (SURVEY.md §2) — this is new capability, same numerics
 # contract.
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10, 11))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10))
 def _fa(
-    q, k, v, segments, causal, sm_scale, block_sizes, res_block_sizes,
-    bwd_block_sizes, interpret, window, softcap,
+    q, k, v, segments, causal, sm_scale, block_sizes, bwd_block_sizes,
+    interpret, window, softcap,
 ):
     return _fwd_impl(
         q, k, v,
@@ -1661,16 +368,12 @@ def _fa(
 
 
 def _fa_fwd(
-    q, k, v, segments, causal, sm_scale, block_sizes, res_block_sizes,
-    bwd_block_sizes, interpret, window, softcap,
+    q, k, v, segments, causal, sm_scale, block_sizes, bwd_block_sizes,
+    interpret, window, softcap,
 ):
-    # Under jax.grad the forward must emit the LSE residual, whose extra fp32
-    # output block needs the residuals-tuned dispatch (VMEM headroom). The
-    # primal value can differ from the no-grad path only by accumulation
-    # order (block shapes), well inside the numerics tolerance.
     out, lse2 = _fwd_impl(
         q, k, v,
-        causal=causal, sm_scale=sm_scale, block_sizes=res_block_sizes,
+        causal=causal, sm_scale=sm_scale, block_sizes=block_sizes,
         save_residuals=True, interpret=interpret,
         window=window, softcap=softcap, segments=segments,
     )
@@ -1678,11 +381,9 @@ def _fa_fwd(
 
 
 def _fa_bwd(
-    causal, sm_scale, block_sizes, res_block_sizes, bwd_block_sizes, interpret,
-    window, softcap, res, g,
+    causal, sm_scale, block_sizes, bwd_block_sizes, interpret, window,
+    softcap, res, g,
 ):
-    import numpy as np
-
     from flash_attention_tpu.ops.attention_bwd import flash_attention_bwd
 
     q, k, v, out, lse2, segments = res
@@ -1740,13 +441,14 @@ def flash_attention(
         the full KV sequence (standard self-attention when q_seq == kv_seq).
       sm_scale: softmax scale, default 1/sqrt(head_dim)
         (flash_attention.cu:612).
-      block_sizes: override the adaptive dispatch table (ops/tuning.py).
-      bwd_block_sizes: block sizes for the backward kernels.
+      block_sizes: override the shape-derived tile choice (ops/tuning.py).
+      bwd_block_sizes: tiles for the backward kernels.
       save_residuals: also return the base-2 log-sum-exp [batch, q_heads,
         q_seq] — the (m, l) contract used by the split-KV / ring-attention
         merge (the reference's latent split-K epilogue, flash_attention.cu:
         460-496, folded into one value). This path is not differentiable.
-      interpret: force Pallas interpreter mode (defaults to True off-TPU).
+      interpret: run the kernels in the Pallas interpreter (default: the
+        process-wide setting of ops/common.py, off).
       segment_ids: packed-sequence ids — either one [batch, seq] int32 array
         (self-attention: used for both Q and KV) or a (q_ids [batch, q_seq],
         kv_ids [batch, kv_seq]) pair. Positions attend only within their own
@@ -1765,8 +467,8 @@ def flash_attention(
     if k.shape != v.shape:
         raise ValueError(f"k/v shape mismatch: {k.shape} vs {v.shape}")
     if k.shape[0] != batch or k.shape[3] != head_dim:
-        # A batch mismatch would otherwise index KV out of bounds, which
-        # Mosaic CLAMPS — silently attending another row's K/V.
+        # A batch mismatch would otherwise index KV rows of another batch
+        # element through the index map.
         raise ValueError(f"q/kv shape mismatch: {q.shape} vs {k.shape}")
     if causal and kv_len < q_len:
         raise ValueError("causal requires kv_seq >= q_seq")
@@ -1799,62 +501,12 @@ def flash_attention(
         segments = (seg_q_ids, seg_kv_ids)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if q.dtype == jnp.float16 and not interpret:
-        # Mosaic has no f16 vector type ('Unsupported type in mosaic
-        # dialect', caught by the on-chip fp16 smoke 2026-08-20): fp16 I/O
-        # runs with bf16 operands on the MXU — scores and accumulators are
-        # fp32 either way, so the numerics contract (<0.1 vs the fp32
-        # oracle at the reference's own fp16 bit-width,
-        # flash_attention.cu:784) holds; only the operand mantissa rounds
-        # (fp16's U(-0.5,0.5) inputs land within 1 bf16 ulp). Gradients
-        # flow through the casts (cotangents cast back to fp16).
-        out = flash_attention(
-            q.astype(jnp.bfloat16),
-            k.astype(jnp.bfloat16),
-            v.astype(jnp.bfloat16),
-            causal=causal, sm_scale=sm_scale, block_sizes=block_sizes,
-            bwd_block_sizes=bwd_block_sizes,
-            save_residuals=save_residuals, interpret=interpret,
-            sliding_window=sliding_window, logit_softcap=logit_softcap,
-            segment_ids=segment_ids,
-        )
-        if save_residuals:
-            o, lse2 = out
-            return o.astype(jnp.float16), lse2
-        return out.astype(jnp.float16)
-    group = num_q_heads // num_kv_heads
-    res_block_sizes = select_block_sizes(
-        min(q_len, kv_len), causal=causal, head_dim=head_dim,
-        save_residuals=True, group=group, kv_seq=kv_len,
-        windowed=sliding_window if sliding_window is not None else False,
-        packed=segments is not None,
-    )
+    interpret = resolve_interpret(interpret)
     if block_sizes is None:
-        # The softcap's tanh temporary, like the LSE residual output, eats
-        # the (1024,1024,h2) configs' last scraps of VMEM — both take the
-        # lower-VMEM dispatch variants. (Sliding windows pick their own
-        # tiers inside the windowed branch, which distinguishes the real
-        # residuals output from this cautionary flag.)
-        block_sizes = select_block_sizes(
-            min(q_len, kv_len), causal=causal, head_dim=head_dim,
-            save_residuals=(save_residuals or logit_softcap is not None),
-            group=group, kv_seq=kv_len,
-            windowed=sliding_window if sliding_window is not None else False,
-            packed=segments is not None,
-        )
-    else:
-        # An explicit override governs BOTH forward paths: a caller who
-        # overrode block sizes (e.g. to dodge a scoped-VMEM cliff) must get
-        # the same config when the op is differentiated (the residuals
-        # forward), not the auto-selected dispatch.
-        res_block_sizes = block_sizes
+        block_sizes = select_block_sizes(q_len, kv_seq=kv_len, head_dim=head_dim)
     if bwd_block_sizes is None:
         bwd_block_sizes = select_bwd_block_sizes(
-            min(q_len, kv_len), causal=causal, head_dim=head_dim,
-            group=group, packed=segments is not None,
-            windowed=sliding_window is not None, cross=q_len != kv_len,
+            q_len, kv_seq=kv_len, head_dim=head_dim
         )
 
     if save_residuals:
@@ -1865,6 +517,6 @@ def flash_attention(
             window=sliding_window, softcap=logit_softcap, segments=segments,
         )
     return _fa(
-        q, k, v, segments, causal, sm_scale, block_sizes, res_block_sizes,
-        bwd_block_sizes, interpret, sliding_window, logit_softcap,
+        q, k, v, segments, causal, sm_scale, block_sizes, bwd_block_sizes,
+        interpret, sliding_window, logit_softcap,
     )

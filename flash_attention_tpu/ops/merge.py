@@ -1,6 +1,6 @@
 """Partial-attention merge primitive (log-sum-exp combine).
 
-TPU-native re-design of the reference's split-K merge kernel C5
+Re-design of the reference's split-K merge kernel C5
 (``flash_attention_splitk_merge``, flash_attention.cu:559-598): given partial
 attention outputs computed over disjoint KV ranges, combine them into the
 exact full-attention result. The reference carried per-split (m, l) pairs and

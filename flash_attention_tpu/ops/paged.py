@@ -1,30 +1,23 @@
-"""Paged KV-cache attention (block-table decode) — Pallas TPU kernel.
+"""Paged KV-cache attention (block-table decode and chunked prefill).
 
 Serving engines fragment KV memory unless the cache is paged: fixed-size
 pages owned by a free-list allocator (native/src/scheduler.cpp's page
 allocator), with each sequence holding a page table instead of a contiguous
-region. This module is the TPU-native kernel side: the page table rides the
-scalar-prefetch channel (pltpu.PrefetchScalarGridSpec) so each grid step DMAs
-exactly one physical page of K and V — the same mechanism the dense decode
-kernel (ops/decode.py) uses for its length-clamped block maps, extended one
-level of indirection.
+region. This module is the device side:
 
-Relation to the reference: the reference has no serving layer at all
-(SURVEY.md §2); this extends its latent split-KV machinery (flash_attention.
-cu:169-180) to production cache management. Numerics are the shared contract
-(ops/common.py): fp32 accumulators, exp2-domain online softmax, base-2 LSE
-residuals compatible with ops/merge.py.
+  * decode runs a Triton-route Pallas kernel in which every program loads
+    its own page-table entries and streams its slot's pages in place,
+    dequantizing int8 / fp8 payloads in registers (a plain version would
+    first gather every slot's pages into a dense copy, each layer and step);
+    the KV range is split across programs and the splits LSE-merged, the
+    reference's latent split-K (flash_attention.cu:169-180, 559-598);
+  * chunked prefill gathers the chunk's visible page band into a dense view
+    and runs the forward kernel over it — a 1024-row chunk does far more
+    work per KV byte than the gather costs;
+  * cache writes are XLA scatters into the (donated) page pools.
 
-Throughput guidance (v5e, b=32, s=8192; dense bf16 cache = 754 GB/s, dense
-int8 = 712): paged reads are DMA-GRANULARITY-bound, so the decode kernel
-fetches whole physical pages across all KV heads in one DMA when the
-working set fits VMEM (_paged_decode_kernel_hb — kv_heads x larger
-transfers), else falls back to per-(head, page) fetches with multi-page
-fanout. Measured with the head-batched fetch: int8 page_size=1024 reads
-732 GB/s (43.4k tok/s — ABOVE the dense int8 path, whose 4096-row blocks
-DMA at 712), bf16 page 512 675 GB/s (was 507 per-head), int8 page 2048
-565 (12 MB whole-page working set crowds VMEM — prefer 1024). SERVING
-CONFIGS: page_size 1024 with quantized KV is the sweet spot.
+Numerics are the shared contract (ops/common.py): fp32 accumulators,
+exp2-domain online softmax, base-2 LSE residuals compatible with ops/merge.py.
 """
 
 from __future__ import annotations
@@ -35,20 +28,18 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from flash_attention_tpu.ops.common import (
-    LANES,
     LOG2E,
     M_FLOOR,
     MASK_VALUE,
-    ceil_to,
-    upcast_kv_payload,
-    upcast_kv_payload_expfold,
+    next_pow2,
+    resolve_interpret,
+    triton_params,
 )
-
-MIN_GROUP_BLOCK = 16  # bf16 sublane tile height
+from flash_attention_tpu.ops.merge import merge_partial_attention, merge_two
 
 
 class PagedKVCache(NamedTuple):
@@ -57,11 +48,10 @@ class PagedKVCache(NamedTuple):
     k_pages, v_pages: [num_pages, kv_heads, page_size, head_dim] — bf16/fp16
       or quantized int8/fp8 payloads.
     k_scales, v_scales: None, or [num_pages, kv_heads, 1, page_size] fp32
-      per-token dequant scales (lane-oriented so the kernel's late scaling
-      needs no relayout).
+      per-token dequant scales.
     page_table: [num_slots, pages_per_slot] int32 — physical page id per
       logical page; entries past the sequence's last page are unused (any
-      value; the kernel clamps and predicates on ``lengths``).
+      value; the kernels never read them).
     lengths: [num_slots] int32 — valid tokens per slot.
     """
 
@@ -119,174 +109,49 @@ def _quantize_rows(x, payload_dtype):
     return qt.values, qt.scales
 
 
-def _slab_update(out_ref, old_ref, new_row, sub_row, ok):
-    """Replace row ``sub_row`` of an old (1, H, 8, D) slab with ``new_row``
-    ([H, D]) when ``ok``, writing the result to ``out_ref``."""
-    row = jax.lax.broadcasted_iota(jnp.int32, old_ref.shape, 2)
-    hit = jnp.logical_and(ok, row == sub_row)
-    out_ref[...] = jnp.where(hit, new_row[None, :, None, :], old_ref[...])
+def _token_targets(cache: PagedKVCache, slots):
+    """(physical page, row offset, in-range) of each slot's next token."""
+    page_size = cache.page_size
+    pos = cache.lengths[slots]
+    # A slot at capacity must not write AT ALL: clamping the page index
+    # alone would wrap the offset to 0 and overwrite the LIVE row at
+    # position (pages_per_slot-1)*page_size.
+    in_range = pos < cache.pages_per_slot * page_size
+    logical = jnp.minimum(pos // page_size, cache.pages_per_slot - 1)
+    phys = cache.page_table[slots, logical].astype(jnp.int32)
+    return phys, (pos % page_size).astype(jnp.int32), in_range
 
 
-def _write_rows_kernel(
-    # scalar prefetch
-    phys_ref, offset_ref, valid_ref,
-    # inputs
-    knew_ref, vnew_ref, kold_ref, vold_ref,
-    # outputs
-    kout_ref, vout_ref,
-):
-    i = pl.program_id(0)
-    ok = valid_ref[i] != 0
-    sub = offset_ref[i] % 8
-    _slab_update(kout_ref, kold_ref, knew_ref[0], sub, ok)
-    _slab_update(vout_ref, vold_ref, vnew_ref[0], sub, ok)
+def _write_token_rows(cache: PagedKVCache, k_new, v_new, phys, offset, valid):
+    """Scatter one [kv_heads, head_dim] row per entry; invalid entries are
+    routed out of bounds and dropped.
 
-
-def _write_rows_kernel_quant(
-    phys_ref, offset_ref, valid_ref,
-    knew_ref, vnew_ref, ksnew_ref, vsnew_ref,
-    kold_ref, vold_ref, ksold_ref, vsold_ref,
-    kout_ref, vout_ref, ksout_ref, vsout_ref,
-):
-    i = pl.program_id(0)
-    ok = valid_ref[i] != 0
-    sub = offset_ref[i] % 8
-    _slab_update(kout_ref, kold_ref, knew_ref[0], sub, ok)
-    _slab_update(vout_ref, vold_ref, vnew_ref[0], sub, ok)
-    # Scales are lane-oriented [pages, H, 1, page_size]: read-modify-write
-    # the slot's whole scale row, replacing exactly the `offset` lane. The
-    # new scales arrive pre-broadcast along lanes ([n, H, 1, page] blocks)
-    # because Mosaic cannot shape-cast a lane vector onto the sublane dim
-    # in-kernel; `hit` selects the one real lane.
-    lane = jax.lax.broadcasted_iota(jnp.int32, ksold_ref.shape, 3)
-    hit = jnp.logical_and(ok, lane == offset_ref[i])
-    ksout_ref[...] = jnp.where(hit, ksnew_ref[...], ksold_ref[...])
-    vsout_ref[...] = jnp.where(hit, vsnew_ref[...], vsold_ref[...])
-
-
-def _scatter_token_rows(cache, kq, vq, ks, vs, phys, offset, valid, interpret):
-    """Write one K/V row (+ scale lane) per slot via a Pallas scatter-by-DMA.
-
-    XLA's gather/scatter lowering executes the equivalent multi-index
-    update as a slow serialized loop — measured 4.67 ms per call for 32
-    rows into a [33, 8, 1024, 128] int8 pool on v5e (the entire engine
-    decode step was 23 ms, ~19 ms of it these scatters). Here each grid
-    step read-modify-writes the 8-row-aligned (1, H, 8, D) slab holding its
-    scalar-prefetched (physical page, offset) row over the ALIASED pool
-    buffer (Mosaic requires sublane-multiple blocks — a 1-row block won't
-    lower), plus a (1, H, 1, page) RMW of the scale row — ~1 MB moved per
-    call instead of a serialized element loop.
-
-    Invalid rows (slot at capacity) write their OLD contents back, which
-    keeps the kernel total: every grid step writes its blocks, so no stale
-    VMEM scratch can leak into the (aliased) output.
-    """
-    n, H, D = kq.shape
-    num_pages, _, page_size, _ = cache.k_pages.shape
-    phys_c = jnp.minimum(phys, num_pages - 1).astype(jnp.int32)
-    offset = offset.astype(jnp.int32)
-    valid = valid.astype(jnp.int32)
-
-    row_block = pl.BlockSpec(
-        (1, H, 8, D), lambda i, p, o, v: (p[i], 0, o[i] // 8, 0)
+    Page, head and row are all indexed (broadcast to [n, kv_heads]), so the
+    scatter updates the donated pool in place. A slice between the indexed
+    page and row dimensions would make XLA transpose the whole pool there
+    and back around the scatter."""
+    num_pages, kv_heads = cache.k_pages.shape[:2]
+    page = jnp.where(valid, phys, num_pages)[:, None]
+    row = offset[:, None]
+    head = jnp.arange(kv_heads)[None, :]
+    if cache.quantized():
+        kq, ks = jax.vmap(lambda x: _quantize_rows(x, cache.k_pages.dtype))(k_new)
+        vq, vs = jax.vmap(lambda x: _quantize_rows(x, cache.v_pages.dtype))(v_new)
+        cache = cache._replace(
+            k_scales=cache.k_scales.at[page, head, 0, row].set(
+                ks[:, :, 0].astype(jnp.float32), mode="drop"
+            ),
+            v_scales=cache.v_scales.at[page, head, 0, row].set(
+                vs[:, :, 0].astype(jnp.float32), mode="drop"
+            ),
+        )
+    else:
+        kq = k_new.astype(cache.k_pages.dtype)
+        vq = v_new.astype(cache.v_pages.dtype)
+    return cache._replace(
+        k_pages=cache.k_pages.at[page, head, row].set(kq, mode="drop"),
+        v_pages=cache.v_pages.at[page, head, row].set(vq, mode="drop"),
     )
-    new_block = pl.BlockSpec((1, H, D), lambda i, p, o, v: (i, 0, 0))
-    quant = ks is not None
-    if quant:
-        # Pre-broadcast the new scales along lanes (HBM copies are cheap at
-        # [n, H, 1, page] fp32 ~1 MB; the kernel keeps only the hit lane).
-        ks = jnp.broadcast_to(ks[:, :, None, None], (n, H, 1, page_size))
-        vs = jnp.broadcast_to(vs[:, :, None, None], (n, H, 1, page_size))
-        scale_block = pl.BlockSpec(
-            (1, H, 1, page_size), lambda i, p, o, v: (p[i], 0, 0, 0)
-        )
-        snew_block = pl.BlockSpec(
-            (1, H, 1, page_size), lambda i, p, o, v: (i, 0, 0, 0)
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            in_specs=[
-                new_block, new_block, snew_block, snew_block,
-                row_block, row_block, scale_block, scale_block,
-            ],
-            out_specs=[row_block, row_block, scale_block, scale_block],
-            grid=(n,),
-        )
-        out_shape = [
-            jax.ShapeDtypeStruct(cache.k_pages.shape, cache.k_pages.dtype),
-            jax.ShapeDtypeStruct(cache.v_pages.shape, cache.v_pages.dtype),
-            jax.ShapeDtypeStruct(cache.k_scales.shape, cache.k_scales.dtype),
-            jax.ShapeDtypeStruct(cache.v_scales.shape, cache.v_scales.dtype),
-        ]
-        # Flattened input indices incl. the 3 scalar-prefetch leaves:
-        # 3..6 = kq,vq,ks,vs; 7..10 = the four aliased pools.
-        aliases = {7: 0, 8: 1, 9: 2, 10: 3}
-        kp, vp, ksc, vsc = pl.pallas_call(
-            _write_rows_kernel_quant,
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            input_output_aliases=aliases,
-            interpret=interpret,
-        )(
-            phys_c, offset, valid, kq, vq, ks, vs,
-            cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
-        )
-        return cache._replace(
-            k_pages=kp, v_pages=vp, k_scales=ksc, v_scales=vsc
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        in_specs=[new_block, new_block, row_block, row_block],
-        out_specs=[row_block, row_block],
-        grid=(n,),
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct(cache.k_pages.shape, cache.k_pages.dtype),
-        jax.ShapeDtypeStruct(cache.v_pages.shape, cache.v_pages.dtype),
-    ]
-    kp, vp = pl.pallas_call(
-        _write_rows_kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        input_output_aliases={5: 0, 6: 1},
-        interpret=interpret,
-    )(phys_c, offset, valid, kq, vq, cache.k_pages, cache.v_pages)
-    return cache._replace(k_pages=kp, v_pages=vp)
-
-
-def _make_multi_write_kernel(num_layers: int, quant: bool):
-    """Kernel writing one token row into `num_layers` layers' pools per grid
-    step (see paged_write_tokens_multi). Ref order: phys [L*n], offset
-    [L*n], valid [n] prefetch; per-layer new blocks; per-layer old blocks;
-    then the aliased per-layer out blocks."""
-
-    def kernel(*refs):
-        per = 4 if quant else 2
-        phys_ref, offset_ref, valid_ref = refs[:3]
-        news = refs[3 : 3 + num_layers * per]
-        olds = refs[3 + num_layers * per : 3 + 2 * num_layers * per]
-        outs = refs[3 + 2 * num_layers * per :]
-        i = pl.program_id(0)
-        n = valid_ref.shape[0]
-        ok = valid_ref[i] != 0
-        for j in range(num_layers):
-            off = offset_ref[j * n + i]
-            sub = off % 8
-            knew, vnew = news[j * per], news[j * per + 1]
-            kold, vold = olds[j * per], olds[j * per + 1]
-            kout, vout = outs[j * per], outs[j * per + 1]
-            _slab_update(kout, kold, knew[0], sub, ok)
-            _slab_update(vout, vold, vnew[0], sub, ok)
-            if quant:
-                ksnew, vsnew = news[j * per + 2], news[j * per + 3]
-                ksold, vsold = olds[j * per + 2], olds[j * per + 3]
-                ksout, vsout = outs[j * per + 2], outs[j * per + 3]
-                lane = jax.lax.broadcasted_iota(jnp.int32, ksold.shape, 3)
-                hit = jnp.logical_and(ok, lane == off)
-                ksout[...] = jnp.where(hit, ksnew[...], ksold[...])
-                vsout[...] = jnp.where(hit, vsnew[...], vsold[...])
-
-    return kernel
 
 
 def paged_write_tokens_multi(
@@ -297,147 +162,32 @@ def paged_write_tokens_multi(
     *,
     interpret: bool | None = None,
 ) -> list:
-    """Append ONE token of K/V per slot to EVERY layer's cache in a single
-    Pallas call.
+    """Append ONE token of K/V per slot to EVERY layer's cache.
 
-    The per-layer :func:`paged_write_tokens` scatter is overhead-bound (~0.5
-    ms/call for 32 slots' ~100 KB of slab RMWs on v5e — dispatch + grid setup
-    + per-tiny-block DMA latency), so an L-layer decode step paid L of them.
-    One call with every layer's pools aliased in/out moves the same bytes for
-    one invocation's overhead. Used by the deferred-write decode step
-    (models/transformer.py), which batches all layers' writes after the layer
-    stack instead of writing inside each layer.
-
-    caches: L PagedKVCache (same num_slots/page_size/quantization; page
-    tables and lengths may differ per layer). k_news/v_news: L arrays of
-    [n, kv_heads, head_dim]. Returns the L updated caches.
+    Used by the deferred-write decode step (models/transformer.py), which
+    batches all layers' writes after the layer stack instead of writing
+    inside each layer. caches: L PagedKVCache (same num_slots/page_size/
+    quantization; page tables and lengths may differ per layer). k_news/
+    v_news: L arrays of [n, kv_heads, head_dim]. Returns the L updated
+    caches. Lengths advance in lockstep: a slot at capacity in any layer
+    freezes in every layer.
     """
-    L = len(caches)
-    if L == 0:
+    del interpret
+    if not caches:
         return []
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    cache0 = caches[0]
-    page_size = cache0.page_size
-    quant = cache0.quantized()
-    n, H, D = k_news[0].shape
-    num_pages = cache0.k_pages.shape[0]
-
-    phys_l, offset_l, valid_l = [], [], []
-    new_inputs = []
-    old_inputs = []
-    for cache, k_new, v_new in zip(caches, k_news, v_news):
-        pos = cache.lengths[slots]
-        in_range = pos < cache.pages_per_slot * page_size
-        logical = jnp.minimum(pos // page_size, cache.pages_per_slot - 1)
-        offset = pos % page_size
-        phys = jnp.minimum(
-            cache.page_table[slots, logical], num_pages - 1
-        ).astype(jnp.int32)
-        phys_l.append(phys)
-        offset_l.append(offset.astype(jnp.int32))
-        valid_l.append(in_range)
-        if quant:
-            kq, ks = jax.vmap(
-                lambda x, c=cache: _quantize_rows(x, c.k_pages.dtype)
-            )(k_new)
-            vq, vs = jax.vmap(
-                lambda x, c=cache: _quantize_rows(x, c.v_pages.dtype)
-            )(v_new)
-            ks = jnp.broadcast_to(
-                ks[:, :, 0].astype(jnp.float32)[:, :, None, None],
-                (n, H, 1, page_size),
-            )
-            vs = jnp.broadcast_to(
-                vs[:, :, 0].astype(jnp.float32)[:, :, None, None],
-                (n, H, 1, page_size),
-            )
-            new_inputs += [kq, vq, ks, vs]
-            old_inputs += [
-                cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales
-            ]
-        else:
-            new_inputs += [
-                k_new.astype(cache.k_pages.dtype),
-                v_new.astype(cache.v_pages.dtype),
-            ]
-            old_inputs += [cache.k_pages, cache.v_pages]
-
-    phys_all = jnp.stack(phys_l).reshape(-1)  # [L*n]
-    offset_all = jnp.stack(offset_l).reshape(-1)
-    # Valid is shared across layers (lengths advance in lockstep); AND them
-    # so a layer at capacity freezes every layer consistently.
-    valid = valid_l[0]
-    for vl in valid_l[1:]:
-        valid = jnp.logical_and(valid, vl)
-    valid = valid.astype(jnp.int32)
-
-    per = 4 if quant else 2
-    in_specs = []
-    out_specs = []
-    out_shape = []
-    aliases = {}
-    for j in range(L):
-        row_block = pl.BlockSpec(
-            (1, H, 8, D),
-            lambda i, p, o, v, j=j: (p[j * n + i], 0, o[j * n + i] // 8, 0),
-        )
-        new_block = pl.BlockSpec((1, H, D), lambda i, p, o, v: (i, 0, 0))
-        if quant:
-            scale_block = pl.BlockSpec(
-                (1, H, 1, page_size),
-                lambda i, p, o, v, j=j: (p[j * n + i], 0, 0, 0),
-            )
-            snew_block = pl.BlockSpec(
-                (1, H, 1, page_size), lambda i, p, o, v: (i, 0, 0, 0)
-            )
-            in_specs += [new_block, new_block, snew_block, snew_block]
-            out_specs += [row_block, row_block, scale_block, scale_block]
-        else:
-            in_specs += [new_block, new_block]
-            out_specs += [row_block, row_block]
-    # olds mirror the out specs (aliased buffers).
-    old_specs = list(out_specs)
-    for t in range(L * per):
-        # Flattened input index: 3 prefetch + L*per new + t ; output t.
-        aliases[3 + L * per + t] = t
-        c = caches[t // per]
-        arrs = (
-            [c.k_pages, c.v_pages, c.k_scales, c.v_scales]
-            if quant else [c.k_pages, c.v_pages]
-        )
-        a = arrs[t % per]
-        out_shape.append(jax.ShapeDtypeStruct(a.shape, a.dtype))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        in_specs=in_specs + old_specs,
-        out_specs=out_specs,
-        grid=(n,),
-    )
-    results = pl.pallas_call(
-        _make_multi_write_kernel(L, quant),
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        input_output_aliases=aliases,
-        interpret=interpret,
-    )(phys_all, offset_all, valid, *new_inputs, *old_inputs)
-
-    out_caches = []
-    vbool = valid.astype(cache0.lengths.dtype)
-    for j, cache in enumerate(caches):
-        if quant:
-            kp, vp, ksc, vsc = results[j * 4 : (j + 1) * 4]
-            cache = cache._replace(
-                k_pages=kp, v_pages=vp, k_scales=ksc, v_scales=vsc
-            )
-        else:
-            kp, vp = results[j * 2 : (j + 1) * 2]
-            cache = cache._replace(k_pages=kp, v_pages=vp)
-        out_caches.append(
-            cache._replace(lengths=cache.lengths.at[slots].add(vbool))
-        )
-    return out_caches
+    targets = [_token_targets(c, slots) for c in caches]
+    valid = targets[0][2]
+    for _, _, ok in targets[1:]:
+        valid = jnp.logical_and(valid, ok)
+    out = []
+    for cache, k_new, v_new, (phys, offset, _) in zip(
+        caches, k_news, v_news, targets
+    ):
+        cache = _write_token_rows(cache, k_new, v_new, phys, offset, valid)
+        out.append(cache._replace(
+            lengths=cache.lengths.at[slots].add(valid.astype(cache.lengths.dtype))
+        ))
+    return out
 
 
 def paged_write_tokens(
@@ -452,37 +202,12 @@ def paged_write_tokens(
 
     k_new, v_new: [n, kv_heads, head_dim]; slots: [n] int32, each slot listed
     at most once per call (one token per slot per decode step). Returns the
-    updated cache (lengths advanced by 1 for the listed slots).
+    updated cache (lengths advanced by 1 for the listed slots that were not
+    at capacity).
     """
-    page_size = cache.page_size
-    quant = cache.quantized()
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    pos = cache.lengths[slots]  # [n]
-    # A slot at capacity must not write AT ALL: clamping the page index
-    # alone would wrap the offset to 0 and overwrite the LIVE row at
-    # position (pages_per_slot-1)*page_size. The scatter kernel predicates
-    # each row on `in_range` (invalid rows rewrite their old contents) and
-    # the slot's length is frozen.
-    in_range = pos < cache.pages_per_slot * page_size  # [n]
-    logical = jnp.minimum(pos // page_size, cache.pages_per_slot - 1)
-    offset = pos % page_size  # [n]
-    phys = cache.page_table[slots, logical]
-
-    if quant:
-        kq, ks = jax.vmap(lambda x: _quantize_rows(x, cache.k_pages.dtype))(k_new)
-        vq, vs = jax.vmap(lambda x: _quantize_rows(x, cache.v_pages.dtype))(v_new)
-        ks, vs = ks[:, :, 0].astype(jnp.float32), vs[:, :, 0].astype(jnp.float32)
-    else:
-        kq, vq = k_new.astype(cache.k_pages.dtype), v_new.astype(cache.v_pages.dtype)
-        ks = vs = None
-
-    cache = _scatter_token_rows(
-        cache, kq, vq, ks, vs, phys, offset, in_range, interpret
-    )
-    lengths = cache.lengths.at[slots].add(in_range.astype(cache.lengths.dtype))
-    return cache._replace(lengths=lengths)
+    return paged_write_tokens_multi(
+        [cache], [k_new], [v_new], slots, interpret=interpret
+    )[0]
 
 
 def paged_write_prefill(
@@ -503,425 +228,131 @@ def paged_write_prefill(
     """
     page_size = cache.page_size
     quant = cache.quantized()
-    t = k_new.shape[1]
+    h, t, d = k_new.shape
     if t % page_size:
         raise ValueError(f"prefill length {t} not a multiple of page_size {page_size}")
     n_pages = t // page_size
     start_page = jnp.asarray(start, jnp.int32) // page_size
+    phys = lax.dynamic_slice_in_dim(
+        cache.page_table[slot], start_page, n_pages
+    )  # [n]
 
-    def write_page(carry, i):
-        k_pages, v_pages, k_sc, v_sc = carry
-        phys = cache.page_table[slot, start_page + i]
-        ks = jax.lax.dynamic_slice(
-            k_new, (0, i * page_size, 0), (k_new.shape[0], page_size, k_new.shape[2])
-        )
-        vs = jax.lax.dynamic_slice(
-            v_new, (0, i * page_size, 0), (v_new.shape[0], page_size, v_new.shape[2])
-        )
-        if quant:
-            ks, kss = _quantize_rows(ks, k_pages.dtype)  # [H, page, D], [H, page, 1]
-            vs, vss = _quantize_rows(vs, v_pages.dtype)
-            k_sc = jax.lax.dynamic_update_slice(
-                k_sc, jnp.swapaxes(kss, 1, 2)[None], (phys, 0, 0, 0)
-            )
-            v_sc = jax.lax.dynamic_update_slice(
-                v_sc, jnp.swapaxes(vss, 1, 2)[None], (phys, 0, 0, 0)
-            )
-        k_pages = jax.lax.dynamic_update_slice(
-            k_pages, ks[None].astype(k_pages.dtype), (phys, 0, 0, 0)
-        )
-        v_pages = jax.lax.dynamic_update_slice(
-            v_pages, vs[None].astype(v_pages.dtype), (phys, 0, 0, 0)
-        )
-        return (k_pages, v_pages, k_sc, v_sc), ()
+    def pages_of(x):  # [H, T, D] -> [n, H, page, D]
+        return jnp.swapaxes(x.reshape(h, n_pages, page_size, d), 0, 1)
 
-    k_sc0 = cache.k_scales if quant else jnp.zeros((), jnp.float32)
-    v_sc0 = cache.v_scales if quant else jnp.zeros((), jnp.float32)
-    (k_pages, v_pages, k_sc, v_sc), _ = jax.lax.scan(
-        write_page, (cache.k_pages, cache.v_pages, k_sc0, v_sc0), jnp.arange(n_pages)
-    )
-    lengths = cache.lengths.at[slot].set(jnp.asarray(true_len, jnp.int32))
-    cache = cache._replace(k_pages=k_pages, v_pages=v_pages, lengths=lengths)
+    k_p, v_p = pages_of(k_new), pages_of(v_new)
     if quant:
-        cache = cache._replace(k_scales=k_sc, v_scales=v_sc)
-    return cache
+        k_p, k_s = _quantize_rows(k_p, cache.k_pages.dtype)  # scales [..., 1]
+        v_p, v_s = _quantize_rows(v_p, cache.v_pages.dtype)
+        cache = cache._replace(
+            k_scales=cache.k_scales.at[phys].set(
+                jnp.swapaxes(k_s, 2, 3).astype(jnp.float32)
+            ),
+            v_scales=cache.v_scales.at[phys].set(
+                jnp.swapaxes(v_s, 2, 3).astype(jnp.float32)
+            ),
+        )
+    return cache._replace(
+        k_pages=cache.k_pages.at[phys].set(k_p.astype(cache.k_pages.dtype)),
+        v_pages=cache.v_pages.at[phys].set(v_p.astype(cache.v_pages.dtype)),
+        lengths=cache.lengths.at[slot].set(jnp.asarray(true_len, jnp.int32)),
+    )
 
 
-def paged_gather_kv(cache: PagedKVCache, slot, kv_end: int, dtype=None):
-    """Gather ``slot``'s first ``kv_end`` rows (a static page multiple) into
-    dense [1, kv_heads, kv_end, head_dim] K and V, dequantized.
+def _densify(cache: PagedKVCache, phys, dtype):
+    """Pages ``phys`` ([n] int32) of K and V as dense [1, H, n*page, D]."""
+    n = phys.shape[0]
 
-    The dense view feeds the prefill kernel for chunked prefill over a paged
-    cache (chunk attention is compute-bound, so the gather+widen is cheap
-    relative to the T x kv_end matmuls it feeds).
-    """
-    page_size = cache.page_size
-    if kv_end % page_size:
-        raise ValueError(f"kv_end={kv_end} not a multiple of page_size {page_size}")
-    n = kv_end // page_size
-    phys = cache.page_table[slot, :n]  # [n] int32
-    if dtype is None:
-        dtype = jnp.bfloat16 if cache.quantized() else cache.k_pages.dtype
-
-    def densify(pages, scales):
+    def one(pages, scales):
         x = jnp.take(pages, phys, axis=0)  # [n, H, page, D]
         if scales is not None:
             sc = jnp.take(scales, phys, axis=0)  # [n, H, 1, page]
             x = x.astype(jnp.float32) * jnp.swapaxes(sc, 2, 3)
         h, d = x.shape[1], x.shape[3]
-        x = jnp.swapaxes(x, 0, 1).reshape(1, h, n * page_size, d)
+        x = jnp.swapaxes(x, 0, 1).reshape(1, h, n * cache.page_size, d)
         return x.astype(dtype)
 
-    k = densify(cache.k_pages, cache.k_scales)
-    v = densify(cache.v_pages, cache.v_scales)
-    return k, v
+    return one(cache.k_pages, cache.k_scales), one(cache.v_pages, cache.v_scales)
 
 
-def _paged_prefill_kernel(
-    length_ref,  # scalar prefetch: [1] int32 (kv_end for this chunk)
-    table_ref,  # scalar prefetch: [pages_per_slot] int32
-    q_ref,  # [1, 1, block_q, D] (one GQA group member's row block)
-    k_refs,  # fanout x [1, 1, page, D] (one physical page each, head-sliced)
-    k_scale_refs,  # fanout x [1, 1, 1, page] fp32, or None
-    v_refs,
-    v_scale_refs,
-    o_ref,  # [1, 1, block_q, D]
-    m_scr,  # [block_q, LANES]
-    l_scr,
-    acc_scr,  # [block_q, D]
-    *,
-    scale2: float,
-    page_size: int,
-    pages_per_slot: int,
-    num_steps: int,
-    fanout: int,
-    block_q: int,
-    chunk_len: int,
-    window: int | None = None,
-    sinks: int = 0,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
-):
-    """Chunked-prefill attention reading K/V pages IN PLACE.
-
-    One grid step: ``fanout`` physical pages against one block of the
-    chunk's Q rows. The chunk's rows sit at positions
-    [kv_end - chunk_len, kv_end); causal masking uses that diag offset, and
-    pages entirely above a row block's diagonal are skipped (their index
-    maps clamp, so they issue no DMA). With a sliding window, pages
-    entirely BELOW the row block's window band are skipped the same way —
-    per-chunk traffic is O(window + chunk) pages, which also makes the
-    kernel safe over the paged RING (rolled-out logical pages alias newer
-    physical pages but sit below the band and are never touched). This
-    replaces the per-chunk dense gather (paged_gather_kv): chunk c no
-    longer re-materializes its whole O(c·chunk) visible prefix in HBM —
-    the pages stream straight into the online-softmax loop, so per-chunk
-    HBM traffic is the pages read once, not gather-out + kernel-in.
-    """
-    iq = pl.program_id(2)
-    ip = pl.program_id(3)
-    kv_end = length_ref[0]
-    chunk_start = kv_end - chunk_len
-
-    @pl.when(ip == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    q = q_ref[0, 0]  # [block_q, D]
-    # Last position visible to this row block (its final row's diagonal).
-    row_hi = chunk_start + (iq + 1) * block_q - 1
-    # First row's position (the block's earliest window bound).
-    row_lo = chunk_start + iq * block_q
-    for j in range(fanout):
-        pj = ip * fanout + j
-        live = pj * page_size <= row_hi
-        if window is not None:
-            band = (pj + 1) * page_size > row_lo + 1 - window
-            if sinks:
-                # StreamingLLM: logical page 0 holds the pinned sink
-                # positions and stays live next to the window band.
-                band = jnp.logical_or(band, pj == 0)
-            live = jnp.logical_and(live, band)
-        if pages_per_slot % fanout:
-            live = jnp.logical_and(live, pj < pages_per_slot)
-
-        @pl.when(live)
-        def _compute(j=j, pj=pj):
-            k = k_refs[j][0, 0]  # [page, D]
-            k_scale_ref = None if k_scale_refs is None else k_scale_refs[j]
-            v_scale_ref = None if v_scale_refs is None else v_scale_refs[j]
-            if k_scale_ref is not None:
-                k_up, k_fold = upcast_kv_payload_expfold(k, q.dtype)
-            else:
-                k_up, k_fold = upcast_kv_payload(k, q.dtype), 1.0
-            s = jax.lax.dot_general(
-                q, k_up, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [block_q, page]
-            if k_scale_ref is not None:
-                ks = k_scale_ref[0, 0]  # [1, page]
-                s = s * (ks * k_fold if k_fold != 1.0 else ks)
-            if softcap_in is not None:
-                s = jnp.tanh(s * softcap_in) * softcap_out
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-                + pj * page_size
-            )
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 0)
-                + chunk_start
-                + iq * block_q
-            )
-            ok = col <= row
-            if window is not None:
-                vis = col > row - window
-                if sinks:
-                    vis = jnp.logical_or(vis, col < sinks)
-                ok = jnp.logical_and(ok, vis)
-            s = jnp.where(ok, s, MASK_VALUE)
-
-            m_prev = m_scr[...]
-            l_prev = l_scr[...]
-            m_curr = jnp.maximum(
-                jnp.max(s, axis=-1, keepdims=True) * scale2, M_FLOOR
-            )
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            p = jnp.exp2(s * scale2 - m_next[:, :1])
-            l_scr[...] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-            m_scr[...] = m_next
-
-            v = v_refs[j][0, 0]
-            if v_scale_ref is not None:
-                v_up, v_fold = upcast_kv_payload_expfold(v, q.dtype)
-                vs = v_scale_ref[0, 0]
-                p = p * (vs * v_fold if v_fold != 1.0 else vs)
-            else:
-                v_up = upcast_kv_payload(v, q.dtype)
-            pv = jax.lax.dot_general(
-                p.astype(q.dtype), v_up, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            acc_scr[...] = acc_scr[...] * alpha[:, :1] + pv
-
-    @pl.when(ip == num_steps - 1)
-    def _epilogue():
-        l = l_scr[...][:, :1]
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o_ref[0, 0] = (acc_scr[...] * inv).astype(o_ref.dtype)
+def paged_gather_kv(cache: PagedKVCache, slot, kv_end: int, dtype=None):
+    """Gather ``slot``'s first ``kv_end`` rows (a static page multiple) into
+    dense [1, kv_heads, kv_end, head_dim] K and V, dequantized."""
+    page_size = cache.page_size
+    if kv_end % page_size:
+        raise ValueError(f"kv_end={kv_end} not a multiple of page_size {page_size}")
+    if dtype is None:
+        dtype = jnp.bfloat16 if cache.quantized() else cache.k_pages.dtype
+    return _densify(cache, cache.page_table[slot, : kv_end // page_size], dtype)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "chunk_len", "sm_scale", "block_q", "interpret", "logit_softcap",
-        "d64_unpadded", "sliding_window", "attention_sinks",
+        "kv_end", "chunk_len", "sm_scale", "interpret", "logit_softcap",
+        "sliding_window", "attention_sinks",
     ),
 )
 def _paged_prefill_attention_jit(
-    q: jax.Array,
-    cache: PagedKVCache,
-    slot,
-    kv_end,
-    *,
-    chunk_len: int,
-    sm_scale: float | None = None,
-    block_q: int | None = None,
-    interpret: bool | None = None,
-    logit_softcap: float | None = None,
-    d64_unpadded: bool = False,
-    sliding_window: int | None = None,
-    attention_sinks: int = 0,
+    q, cache, slot, *, kv_end, chunk_len, sm_scale, interpret, logit_softcap,
+    sliding_window, attention_sinks,
 ):
-    """Causal chunk attention over a slot's paged KV, pages read in place.
+    from flash_attention_tpu.ops.flash_attention import flash_attention
 
-    Args:
-      q: [1, q_heads, chunk_len, head_dim] — the current prefill chunk, whose
-        rows occupy positions [kv_end - chunk_len, kv_end). The chunk's own
-        K/V must already be written to the cache (the engine writes the chunk
-        before attending, exactly as with the gather path).
-      cache: PagedKVCache (plain or quantized payloads).
-      slot: scalar int — the slot whose page table maps the KV.
-      kv_end: scalar int32 — exclusive end of the visible KV prefix
-        (= chunk positions' end; the diag offset is kv_end - chunk_len).
-      chunk_len: static chunk length (a multiple of 128).
-      block_q: Q rows per grid step (defaults to min(chunk_len, 512)).
-
-    Returns:
-      [1, q_heads, chunk_len, head_dim] attention output.
-
-    Unlike the dense-gather path (paged_gather_kv + flash_attention), whose
-    chunk c moves O(c·chunk) HBM bytes re-densifying the prefix, this kernel
-    reads each visible page once per Q row block via the scalar-prefetch page
-    table — the same one-level indirection as _paged_decode_kernel, at
-    prefill width.
-    """
-    _, num_q_heads, t, head_dim = q.shape
-    num_pages, num_kv_heads, page_size, _ = cache.k_pages.shape
-    pages_per_slot = cache.pages_per_slot
-    if t != chunk_len:
-        raise ValueError(f"q chunk length {t} != chunk_len {chunk_len}")
-    if chunk_len % 128:
-        raise ValueError(f"chunk_len={chunk_len} must be a multiple of 128")
-    if num_q_heads % num_kv_heads:
-        raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
+    page_size = cache.page_size
+    head_dim = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if block_q is None:
-        # Largest 128-multiple divisor of chunk_len <= 512 (chunk_len is a
-        # 128-multiple, so 128 always terminates the walk): chunk 768 -> 384,
-        # not a ValueError from a blind 512 default.
-        block_q = min(chunk_len, 512)
-        while chunk_len % block_q:
-            block_q -= 128
-    block_q = min(block_q, chunk_len)
-    if chunk_len % block_q:
-        raise ValueError(f"chunk_len={chunk_len} % block_q={block_q} != 0")
-
-    group = num_q_heads // num_kv_heads
-    # d64_unpadded: keep 64-wide pages in-kernel (block minor = full array
-    # minor) instead of pad-copying the page pool every chunk — same form
-    # and gating as decode_attention's flag.
-    d_pad = 64 if (d64_unpadded and head_dim == 64) else ceil_to(head_dim, 128)
-    # [1, Hq, T, D] -> [Hkv, group, T, D]: the grid walks (kv_head, group,
-    # q block) so each Q block attends ONE un-expanded KV head's pages.
-    qg = q.reshape(num_kv_heads, group, t, head_dim)
-    if d_pad != head_dim:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, 0), (0, d_pad - head_dim)))
-
-    # Pages are indexed in their NATIVE [P, H, page, D] layout (the block
-    # index map picks (phys, h)): pre-transposing to head-major would
-    # materialize a full HBM relayout copy of the ENTIRE pool on every
-    # chunk call, inverting the O(visible pages) win this kernel exists
-    # for. Scales stay native [P, H, 1, page] the same way ((1,1,1,page)
-    # blocks satisfy Mosaic's trailing-dims constraint).
-    k_pages, v_pages = cache.k_pages, cache.v_pages
-    if d_pad != head_dim:
-        pads = ((0, 0), (0, 0), (0, 0), (0, d_pad - head_dim))
-        k_pages = jnp.pad(k_pages, pads)
-        v_pages = jnp.pad(v_pages, pads)
-    quant = cache.quantized()
-
-    table = cache.page_table[slot].astype(jnp.int32)  # [pages_per_slot]
-    kv_end_arr = jnp.asarray(kv_end, jnp.int32).reshape(1)
-
-    fanout = max(1, min(pages_per_slot, 2048 // page_size))
-    num_steps = -(-pages_per_slot // fanout)
-    num_q_blocks = chunk_len // block_q
-
-    def make_kv_map(j):
-        def kv_map(h, g, iq, ip, length_ref, table_ref):
-            kv_end_ = length_ref[0]
-            chunk_start = kv_end_ - chunk_len
-            # Clamp into the live page band for this row block: fully-masked
-            # pages repeat a live index and issue no DMA — above the
-            # diagonal, and (windowed) below the first row's window bound.
-            row_hi = chunk_start + (iq + 1) * block_q - 1
-            last_live = row_hi // page_size
-            pj = jnp.minimum(ip * fanout + j, pages_per_slot - 1)
-            pj = jnp.minimum(pj, last_live)
-            if sliding_window is not None:
-                row_lo = chunk_start + iq * block_q
-                first_live = jnp.maximum(
-                    (row_lo + 1 - sliding_window) // page_size, 0
-                )
-                pj_raw = ip * fanout + j
-                clamped = jnp.maximum(pj, jnp.minimum(first_live, last_live))
-                if attention_sinks:
-                    # Logical page 0 (pinned sinks) keeps its own DMA.
-                    pj = jnp.where(pj_raw == 0, pj, clamped)
-                else:
-                    pj = clamped
-            return (table_ref[pj], h, 0, 0)
-
-        return kv_map
-
-    def make_sc_map(j):
-        return make_kv_map(j)  # scales share the (phys, h, 0, 0) map
-
-    q_spec = pl.BlockSpec(
-        (1, 1, block_q, d_pad), lambda h, g, iq, ip, L, T: (h, g, iq, 0)
+    chunk_start = kv_end - chunk_len
+    first_page = 0
+    if sliding_window is not None:
+        # Pages wholly below the first row's window never matter — and over
+        # the paged ring they alias newer pages, so they must not be read.
+        first_page = max(0, (chunk_start + 1 - sliding_window) // page_size)
+    last_page = -(-kv_end // page_size)
+    phys = cache.page_table[slot, first_page:last_page]
+    dtype = q.dtype
+    k_band, v_band = _densify(cache, phys, dtype)
+    band_len = kv_end - first_page * page_size
+    k_band, v_band = k_band[:, :, :band_len], v_band[:, :, :band_len]
+    kw = dict(
+        causal=True, sm_scale=sm_scale, interpret=interpret,
+        sliding_window=sliding_window, logit_softcap=logit_softcap,
     )
-    kv_specs = [
-        pl.BlockSpec((1, 1, page_size, d_pad), make_kv_map(j))
-        for j in range(fanout)
-    ]
-    sc_specs = [
-        pl.BlockSpec((1, 1, 1, page_size), make_sc_map(j))
-        for j in range(fanout)
-    ]
-    out_shape = jax.ShapeDtypeStruct(
-        (num_kv_heads, group, chunk_len, d_pad), q.dtype
-    )
-    out_spec = pl.BlockSpec(
-        (1, 1, block_q, d_pad), lambda h, g, iq, ip, L, T: (h, g, iq, 0)
-    )
+    if not attention_sinks or chunk_start + 1 - sliding_window <= 0:
+        # No row's window has moved past the sinks: the band mask is exact.
+        return flash_attention(q, k_band, v_band, **kw)
 
-    def wrapped(length_ref, table_ref, *refs):
-        idx = 0
-        q_r = refs[idx]; idx += 1
-        k_rs = refs[idx : idx + fanout]; idx += fanout
-        k_ss = refs[idx : idx + fanout] if quant else None
-        idx += fanout if quant else 0
-        v_rs = refs[idx : idx + fanout]; idx += fanout
-        v_ss = refs[idx : idx + fanout] if quant else None
-        idx += fanout if quant else 0
-        o_r = refs[idx]; idx += 1
-        scr = refs[idx:]
-        _paged_prefill_kernel(
-            length_ref, table_ref, q_r, k_rs, k_ss, v_rs, v_ss, o_r, *scr,
-            scale2=sm_scale * LOG2E,
-            page_size=page_size,
-            pages_per_slot=pages_per_slot,
-            num_steps=num_steps,
-            fanout=fanout,
-            block_q=block_q,
-            chunk_len=chunk_len,
-            window=sliding_window,
-            sinks=attention_sinks,
-            softcap_in=None if logit_softcap is None else sm_scale / logit_softcap,
-            softcap_out=None if logit_softcap is None else logit_softcap / sm_scale,
-        )
-
-    in_specs = [q_spec] + list(kv_specs)
-    inputs = [qg] + [k_pages] * fanout
-    if quant:
-        in_specs += list(sc_specs)
-        inputs += [cache.k_scales] * fanout
-    in_specs += list(kv_specs)
-    inputs += [v_pages] * fanout
-    if quant:
-        in_specs += list(sc_specs)
-        inputs += [cache.v_scales] * fanout
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_kv_heads, group, num_q_blocks, num_steps),
-        in_specs=in_specs,
-        out_specs=[out_spec],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, LANES), jnp.float32),
-            pltpu.VMEM((block_q, LANES), jnp.float32),
-            pltpu.VMEM((block_q, d_pad), jnp.float32),
-        ],
-    )
-
-    results = pl.pallas_call(
-        wrapped,
-        grid_spec=grid_spec,
-        out_shape=[out_shape],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(kv_end_arr, table, *inputs)
-
-    out = results[0][:, :, :, :head_dim].reshape(1, num_q_heads, t, head_dim)
-    return out
+    # StreamingLLM: positions [0, sinks) stay visible to every row. The band
+    # covers what the window shows; the sink term adds the sinks each row's
+    # window has dropped, LSE-merged in the base-2 domain.
+    o_band, lse_band = flash_attention(q, k_band, v_band, save_residuals=True,
+                                       **kw)
+    k_sink, v_sink = _densify(cache, cache.page_table[slot, :1], jnp.float32)
+    k_sink = k_sink[:, :, :attention_sinks]
+    v_sink = v_sink[:, :, :attention_sinks]
+    group = q.shape[1] // k_sink.shape[1]
+    k_sink = jnp.repeat(k_sink, group, axis=1)
+    v_sink = jnp.repeat(v_sink, group, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32), k_sink,
+                   precision=lax.Precision.HIGHEST)
+    if logit_softcap is not None:
+        s = jnp.tanh(s * (sm_scale / logit_softcap)) * (logit_softcap * LOG2E)
+    else:
+        s = s * (sm_scale * LOG2E)
+    row = chunk_start + jnp.arange(chunk_len)[:, None]
+    col = jnp.arange(attention_sinks)[None, :]
+    dropped = jnp.logical_and(col <= row - sliding_window, col <= row)
+    s = jnp.where(dropped, s, MASK_VALUE)
+    m = jnp.maximum(jnp.max(s, axis=-1), M_FLOOR)
+    p = jnp.exp2(s - m[..., None])
+    l = jnp.sum(p, axis=-1)
+    l_safe = jnp.where(l == 0.0, 1.0, l)
+    o_sink = jnp.einsum("bhqk,bhkd->bhqd", p, v_sink,
+                        precision=lax.Precision.HIGHEST) / l_safe[..., None]
+    lse_sink = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(l_safe))
+    o, _ = merge_two(o_band, lse_band, o_sink, lse_sink)
+    return o.astype(q.dtype)
 
 
 def paged_prefill_attention(
@@ -939,26 +370,51 @@ def paged_prefill_attention(
     sliding_window: int | None = None,
     attention_sinks: int = 0,
 ):
-    """Un-jitted entry for :func:`_paged_prefill_attention_jit` (same
-    signature and docstring) that validates a CONCRETE kv_end before
-    tracing: the jitted body only ever sees kv_end as a Tracer, where an
-    inconsistent length contract (kv_end < chunk_len makes chunk_start
-    negative) would kill every page's live condition and return
-    silently-zero attention output."""
-    if not isinstance(kv_end, jax.core.Tracer) and (
-        isinstance(kv_end, int) or getattr(kv_end, "ndim", None) == 0
-    ):
-        end = int(kv_end)
-        if end < chunk_len:
-            raise ValueError(
-                f"kv_end={end} < chunk_len={chunk_len}: the chunk's rows "
-                f"occupy [kv_end - chunk_len, kv_end), which must not be negative"
-            )
-        if end > cache.pages_per_slot * cache.page_size:
-            raise ValueError(
-                f"kv_end={end} exceeds slot capacity "
-                f"{cache.pages_per_slot} pages x {cache.page_size} rows"
-            )
+    """Causal chunk attention over a slot's paged KV.
+
+    Args:
+      q: [1, q_heads, chunk_len, head_dim] — the current prefill chunk, whose
+        rows occupy positions [kv_end - chunk_len, kv_end). The chunk's own
+        K/V must already be written to the cache.
+      cache: PagedKVCache (plain or quantized payloads).
+      slot: scalar int — the slot whose page table maps the KV.
+      kv_end: exclusive end of the visible KV prefix, CONCRETE (a Python int
+        or a concrete scalar array): it fixes the shape of the gathered band.
+      chunk_len: static chunk length.
+      block_q: accepted for interface stability; the forward kernel's tile
+        choice applies.
+      d64_unpadded: accepted for interface stability; nothing is padded.
+
+    The chunk's visible pages — all of [0, kv_end), or with a sliding window
+    only the band its rows can see (plus the pinned sink page) — are
+    gathered into a dense, dequantized view that feeds the forward kernel.
+
+    Returns:
+      [1, q_heads, chunk_len, head_dim] attention output.
+    """
+    del block_q, d64_unpadded
+    _, num_q_heads, t, _ = q.shape
+    num_kv_heads = cache.k_pages.shape[1]
+    if t != chunk_len:
+        raise ValueError(f"q chunk length {t} != chunk_len {chunk_len}")
+    if num_q_heads % num_kv_heads:
+        raise ValueError(f"q_heads={num_q_heads} % kv_heads={num_kv_heads} != 0")
+    if isinstance(kv_end, jax.core.Tracer):
+        raise ValueError(
+            "kv_end must be concrete: it sets the shape of the gathered page "
+            "band (pass a Python int)"
+        )
+    end = int(kv_end)
+    if end < chunk_len:
+        raise ValueError(
+            f"kv_end={end} < chunk_len={chunk_len}: the chunk's rows "
+            f"occupy [kv_end - chunk_len, kv_end), which must not be negative"
+        )
+    if end > cache.pages_per_slot * cache.page_size:
+        raise ValueError(
+            f"kv_end={end} exceeds slot capacity "
+            f"{cache.pages_per_slot} pages x {cache.page_size} rows"
+        )
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if attention_sinks:
@@ -970,266 +426,104 @@ def paged_prefill_attention(
                 f"first page ({cache.page_size} rows)"
             )
     return _paged_prefill_attention_jit(
-        q, cache, slot, kv_end, chunk_len=chunk_len, sm_scale=sm_scale,
-        block_q=block_q, interpret=interpret, logit_softcap=logit_softcap,
-        d64_unpadded=d64_unpadded, sliding_window=sliding_window,
-        attention_sinks=attention_sinks,
+        q, cache, slot, kv_end=end, chunk_len=chunk_len, sm_scale=sm_scale,
+        interpret=interpret, logit_softcap=logit_softcap,
+        sliding_window=sliding_window, attention_sinks=attention_sinks,
     )
 
 
-def _paged_decode_kernel_hb(
-    lengths_ref,  # scalar prefetch: [S] int32
-    table_ref,  # scalar prefetch: [S * pages_per_slot] int32 (flattened)
-    q_ref,  # [1, H, Gp, D]
-    k_refs,  # fanout x [1, H, page, D] — ONE whole physical page (all heads)
-    k_scale_refs,  # fanout x [1, H, 1, page] fp32, or None
-    v_refs,
-    v_scale_refs,
-    o_ref,  # [1, H, Gp, D]
-    lse_ref,  # [1, H, Gp, LANES] or None
-    m_scr,  # [H, Gp, LANES]
-    l_scr,
-    acc_scr,  # [H, Gp, D]
-    *,
-    scale2: float,
-    page_size: int,
-    pages_per_slot: int,
-    num_steps: int,
-    fanout: int,
-    window: int | None = None,
-    sinks: int = 0,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
-):
-    """Head-batched paged decode: one DMA per physical PAGE, not per
-    (head, page).
-
-    The per-head kernel's DMAs are [page, D] slices — 131 KB at int8
-    page_size=1024, which is DMA-granularity-bound (measured 428 GB/s vs
-    712 dense; paged bf16 with 2x the bytes per DMA reads 711). A physical
-    page's [kv_heads, page, D] block is CONTIGUOUS in the native cache
-    layout, so fetching all heads at once multiplies the DMA size by
-    kv_heads and computes every head's GQA group per step with batched
-    MMAs. Used when the whole-page working set fits VMEM (quantized
-    payloads, moderate pages); the per-head kernel remains for the rest.
-    """
-    b = pl.program_id(0)
-    ip = pl.program_id(1)
-    length = lengths_ref[b]
-
-    @pl.when(ip == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    q = q_ref[0]  # [H, Gp, D]
-    for j in range(fanout):
-        pj = ip * fanout + j
-        if window is None:
-            live = pj * page_size < length
-        else:
-            band = (pj + 1) * page_size > length - window
-            if sinks:
-                # StreamingLLM: logical page 0 pins the sink positions.
-                band = jnp.logical_or(band, pj == 0)
-            live = jnp.logical_and(pj * page_size < length, band)
-        if pages_per_slot % fanout:
-            live = jnp.logical_and(live, pj < pages_per_slot)
-
-        @pl.when(live)
-        def _compute(j=j, pj=pj):
-            k = k_refs[j][0]  # [H, page, D]
-            k_scale_ref = None if k_scale_refs is None else k_scale_refs[j]
-            v_scale_ref = None if v_scale_refs is None else v_scale_refs[j]
-            if k_scale_ref is not None:
-                k_up, k_fold = upcast_kv_payload_expfold(k, q.dtype)
-            else:
-                k_up, k_fold = upcast_kv_payload(k, q.dtype), 1.0
-            s = jax.lax.dot_general(
-                q, k_up, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [H, Gp, page]
-            if k_scale_ref is not None:
-                ks = k_scale_ref[0]  # [H, 1, page] broadcasts over Gp rows
-                s = s * (ks * k_fold if k_fold != 1.0 else ks)
-            if softcap_in is not None:
-                s = jnp.tanh(s * softcap_in) * softcap_out
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape[1:], 1)
-                + pj * page_size
-            )
-            ok = col < length
-            if window is not None:
-                vis = col >= length - window
-                if sinks:
-                    vis = jnp.logical_or(vis, col < sinks)
-                ok = jnp.logical_and(ok, vis)
-            s = jnp.where(ok[None], s, MASK_VALUE)
-
-            m_prev = m_scr[...]  # [H, Gp, LANES]
-            l_prev = l_scr[...]
-            m_curr = jnp.max(s, axis=-1, keepdims=True) * scale2
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            p = jnp.exp2(s * scale2 - m_next[:, :, :1])
-            l_scr[...] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-            m_scr[...] = m_next
-
-            v = v_refs[j][0]
-            if v_scale_ref is not None:
-                v_up, v_fold = upcast_kv_payload_expfold(v, q.dtype)
-                vs = v_scale_ref[0]
-                p = p * (vs * v_fold if v_fold != 1.0 else vs)
-            else:
-                v_up = upcast_kv_payload(v, q.dtype)
-            pv = jax.lax.dot_general(
-                p.astype(q.dtype), v_up, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [H, Gp, D]
-            acc_scr[...] = acc_scr[...] * alpha[:, :, :1] + pv
-
-    @pl.when(ip == num_steps - 1)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o_ref[0] = (acc_scr[...] * inv).astype(o_ref.dtype)
-        if lse_ref is not None:
-            m = m_scr[...][:, :, :1]
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(safe_l))
-            lse_ref[0] = jnp.broadcast_to(lse2, lse_ref.shape[1:])
-
-
 def _paged_decode_kernel(
-    lengths_ref,  # scalar prefetch: [S] int32
-    table_ref,  # scalar prefetch: [S * pages_per_slot] int32 (flattened)
-    q_ref,  # [1, 1, Gp, D]
-    k_refs,  # fanout x [1, 1, page, D] (one physical page each, head-sliced)
-    k_scale_refs,  # fanout x [1, 1, 1, page] fp32, or None
-    v_refs,
-    v_scale_refs,
-    o_ref,  # [1, 1, Gp, D]
-    lse_ref,  # [1, 1, Gp, LANES] or None
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    scale2: float,
-    page_size: int,
-    pages_per_slot: int,
-    num_steps: int,
-    fanout: int,
-    window: int | None = None,
-    sinks: int = 0,
-    softcap_in: float | None = None,
-    softcap_out: float | None = None,
+    len_ref, table_ref, q_ref, k_ref, v_ref, *refs,
+    sm_scale, softcap, window, sinks, quant, page_size, block_k, num_splits,
 ):
-    """One grid step processes ``fanout`` logical pages (ip*fanout + j).
+    """One program: one slot, one KV head, one split of the slot's pages.
 
-    A page is one DMA regardless (pages are non-contiguous in HBM), but the
-    per-grid-step fixed cost (~0.6us on v5e) amortizes over fanout pages —
-    the paged analog of the dense decode kernel's big-block rule
-    (ops/tuning.py select_decode_block_sizes).
+    The program reads its slot's length and page-table row itself, walks its
+    share of the live token range in ``block_k`` steps (each step lies inside
+    one page), and keeps the (m, l, acc) online-softmax state for its GQA
+    group's query rows in registers.
     """
-    b = pl.program_id(0)
-    ip = pl.program_id(2)
-    length = lengths_ref[b]
+    if quant:
+        ks_ref, vs_ref, o_ref, lse_ref = refs
+    else:
+        o_ref, lse_ref = refs
+    sp = pl.program_id(2)
+    length = len_ref[0]
+    q = q_ref[...]  # [Gp, D]
 
-    @pl.when(ip == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    q = q_ref[0, 0]  # [Gp, D]
-    for j in range(fanout):
-        pj = ip * fanout + j  # logical page index
-        if window is None:
-            live = pj * page_size < length
+    def body(i, carry):
+        acc, m, l = carry
+        t0 = i * block_k
+        phys = table_ref[lax.div(t0, page_size)]
+        off = lax.rem(t0, page_size)
+        k = k_ref[phys, pl.ds(off, block_k), :]
+        s = pl.dot(q, k.astype(q.dtype), trans_b=True)  # [Gp, block_k]
+        if quant:
+            s = s * ks_ref[phys, pl.ds(off, block_k)][None, :]
+        if softcap is None:
+            s = s * (sm_scale * LOG2E)
         else:
-            band = (pj + 1) * page_size > length - window
+            s = jnp.tanh(s * (sm_scale / softcap)) * (softcap * LOG2E)
+        col = t0 + jnp.arange(block_k, dtype=jnp.int32)[None, :]
+        ok = col < length
+        if window is not None:
+            vis = col >= length - window
             if sinks:
-                # StreamingLLM: logical page 0 pins the sink positions.
-                band = jnp.logical_or(band, pj == 0)
-            live = jnp.logical_and(pj * page_size < length, band)
-        if pages_per_slot % fanout:
-            live = jnp.logical_and(live, pj < pages_per_slot)
+                vis = jnp.logical_or(vis, col < sinks)
+            ok = jnp.logical_and(ok, vis)
+        s = jnp.where(ok, s, MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        l = alpha * l + jnp.sum(p, axis=1)
+        if quant:
+            p = p * vs_ref[phys, pl.ds(off, block_k)][None, :]
+        v = v_ref[phys, pl.ds(off, block_k), :]
+        acc = acc * alpha[:, None] + pl.dot(p.astype(q.dtype), v.astype(q.dtype))
+        return acc, m_new, l
 
-        @pl.when(live)
-        def _compute(j=j, pj=pj):
-            k = k_refs[j][0, 0]  # [page, D]
-            k_scale_ref = None if k_scale_refs is None else k_scale_refs[j]
-            v_scale_ref = None if v_scale_refs is None else v_scale_refs[j]
-            if k_scale_ref is not None:
-                # Exponent-folded fp8 widen (ops/common.py): the 2**k rebias
-                # rides the scale row instead of the payload tile.
-                k_up, k_fold = upcast_kv_payload_expfold(k, q.dtype)
-            else:
-                k_up, k_fold = upcast_kv_payload(k, q.dtype), 1.0
-            s = jax.lax.dot_general(
-                q, k_up, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [Gp, page]
-            if k_scale_ref is not None:
-                # Late-scaled fused dequant (see ops/decode.py): per-token
-                # scales commute with the dot, applied to the score tile.
-                ks = k_scale_ref[0, 0]
-                s = s * (ks * k_fold if k_fold != 1.0 else ks)
-            if softcap_in is not None:
-                s = jnp.tanh(s * softcap_in) * softcap_out
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-                + pj * page_size
-            )
-            ok = col < length
-            if window is not None:
-                vis = col >= length - window
-                if sinks:
-                    vis = jnp.logical_or(vis, col < sinks)
-                ok = jnp.logical_and(ok, vis)
-            s = jnp.where(ok, s, MASK_VALUE)
+    # Live token steps [lo, hi) of this slot, split evenly across programs.
+    hi = lax.div(length + (block_k - 1), block_k)
+    lo = 0
+    if window is not None:
+        lo = lax.div(jnp.maximum(length - window, 0), block_k)
+    per = lax.div(jnp.maximum(hi - lo, 0) + (num_splits - 1), num_splits)
+    start = jnp.minimum(lo + sp * per, hi)
+    stop = jnp.minimum(start + per, hi)
+    carry = (
+        jnp.zeros(q.shape, jnp.float32),
+        jnp.full((q.shape[0],), M_FLOOR, jnp.float32),
+        jnp.zeros((q.shape[0],), jnp.float32),
+    )
+    if sinks:
+        # StreamingLLM: the pinned sink steps below the window band, read
+        # once (by split 0).
+        sink_stop = jnp.where(
+            sp == 0, jnp.minimum(lo, (sinks + block_k - 1) // block_k), 0
+        )
+        carry = lax.fori_loop(0, sink_stop, body, carry)
+    acc, m, l = lax.fori_loop(start, stop, body, carry)
+    empty = l == 0.0
+    l_safe = jnp.where(empty, 1.0, l)
+    o_ref[...] = acc / l_safe[:, None]
+    lse_ref[...] = jnp.where(empty, -jnp.inf, m + jnp.log2(l_safe))
 
-            m_prev = m_scr[...]
-            l_prev = l_scr[...]
-            m_curr = jnp.max(s, axis=-1, keepdims=True) * scale2
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            p = jnp.exp2(s * scale2 - m_next[:, :1])
-            l_scr[...] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-            m_scr[...] = m_next
 
-            v = v_refs[j][0, 0]
-            if v_scale_ref is not None:
-                v_up, v_fold = upcast_kv_payload_expfold(v, q.dtype)
-                vs = v_scale_ref[0, 0]
-                p = p * (vs * v_fold if v_fold != 1.0 else vs)
-            else:
-                v_up = upcast_kv_payload(v, q.dtype)
-            pv = jax.lax.dot_general(
-                p.astype(q.dtype), v_up,
-                (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            acc_scr[...] = acc_scr[...] * alpha[:, :1] + pv
-
-    @pl.when(ip == num_steps - 1)
-    def _epilogue():
-        l = l_scr[...][:, :1]
-        inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o_ref[0, 0] = (acc_scr[...] * inv).astype(o_ref.dtype)
-        if lse_ref is not None:
-            m = m_scr[...][:, :1]
-            safe_l = jnp.where(l == 0.0, 1.0, l)
-            lse2 = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(safe_l))
-            lse_ref[0, 0] = jnp.broadcast_to(lse2, lse_ref.shape[2:])
+def _decode_splits(num_slots: int, num_kv_heads: int, max_steps: int) -> int:
+    """KV splits per (slot, head): enough programs for two waves on 132 SMs,
+    never more splits than token steps."""
+    programs = num_slots * num_kv_heads
+    splits = 1
+    while programs * splits < 264 and splits * 2 <= max(1, max_steps // 2):
+        splits *= 2
+    return splits
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "sm_scale", "save_residuals", "interpret", "sliding_window",
-        "logit_softcap", "d64_unpadded", "attention_sinks", "_force_per_head",
+        "logit_softcap", "d64_unpadded", "attention_sinks",
     ),
 )
 def paged_decode_attention(
@@ -1243,20 +537,22 @@ def paged_decode_attention(
     logit_softcap: float | None = None,
     d64_unpadded: bool = False,
     attention_sinks: int = 0,
-    _force_per_head: bool = False,
 ):
     """Single-token decode over the paged cache.
 
     Args:
       q: [num_slots, q_heads, head_dim] current-token queries (all slots; the
         caller masks out inactive slots via lengths == 0 or ignores outputs).
-      cache: PagedKVCache; q_heads % kv_heads == 0 (GQA grouped as in
-        ops/decode.py — group rows become MXU matmul rows).
+      cache: PagedKVCache; q_heads % kv_heads == 0 (a GQA group's query rows
+        are the rows of one tile).
+      d64_unpadded: accepted for interface stability; the kernel never pads
+        head_dim.
 
     Returns:
       [num_slots, q_heads, head_dim] attention output (+ base-2 LSE
       [num_slots, q_heads] when save_residuals).
     """
+    del d64_unpadded
     num_slots, num_q_heads, head_dim = q.shape
     num_pages, num_kv_heads, page_size, _ = cache.k_pages.shape
     pages_per_slot = cache.pages_per_slot
@@ -1272,303 +568,96 @@ def paged_decode_attention(
                 f"attention_sinks ({attention_sinks}) must fit the pinned "
                 f"first page ({page_size} rows)"
             )
+    if page_size % 16:
+        raise ValueError(f"page_size must be a multiple of 16, got {page_size}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = resolve_interpret(interpret)
 
     group = num_q_heads // num_kv_heads
-    group_pad = max(ceil_to(group, 8), MIN_GROUP_BLOCK)
-    # See decode_attention's d64_unpadded: avoids pad-copying the whole page
-    # pool per step for head_dim=64 caches. Off pending on-chip validation.
-    d_pad = 64 if (d64_unpadded and head_dim == 64) else ceil_to(head_dim, 128)
-
-    qg = q.reshape(num_slots, num_kv_heads, group, head_dim)
-    if group_pad != group or d_pad != head_dim:
-        qg = jnp.pad(
-            qg, ((0, 0), (0, 0), (0, group_pad - group), (0, d_pad - head_dim))
-        )
-    k_pages, v_pages = cache.k_pages, cache.v_pages
-    if d_pad != head_dim:
-        pads = ((0, 0), (0, 0), (0, 0), (0, d_pad - head_dim))
-        k_pages = jnp.pad(k_pages, pads)
-        v_pages = jnp.pad(v_pages, pads)
+    g_pad = max(16, next_pow2(group))
+    d_pad = max(16, next_pow2(head_dim))
+    # Largest power-of-two step (<= 128 rows) that tiles a page.
+    block_k = 128
+    while page_size % block_k:
+        block_k //= 2
     quant = cache.quantized()
 
-    table_flat = cache.page_table.reshape(-1).astype(jnp.int32)
-    lengths = cache.lengths.astype(jnp.int32)
-
-    # Head-batched whole-page fetch (see _paged_decode_kernel_hb): one DMA
-    # per physical page instead of per (head, page) — kv_heads x larger
-    # transfers, which is what the DMA-granularity-bound quantized path
-    # needs (int8 page=1024 measured 428 GB/s per-head vs 712 dense).
-    # Applies when the whole-page working set fits VMEM.
-    itemsize = k_pages.dtype.itemsize
-    per_f = 2 * num_kv_heads * page_size * d_pad * itemsize * 2  # k+v, 2 buf
-    upcast_tmp = (
-        0 if itemsize >= 2 else 2 * num_kv_heads * page_size * d_pad * 2
+    qg = q.reshape(num_slots, num_kv_heads, group, head_dim)
+    k_pages, v_pages = cache.k_pages, cache.v_pages
+    if g_pad != group or d_pad != head_dim:
+        qg = jnp.pad(
+            qg, ((0, 0), (0, 0), (0, g_pad - group), (0, d_pad - head_dim))
+        )
+    if d_pad != head_dim:
+        pads = ((0, 0), (0, 0), (0, 0), (0, d_pad - head_dim))
+        k_pages, v_pages = jnp.pad(k_pages, pads), jnp.pad(v_pages, pads)
+    table_w = next_pow2(pages_per_slot)
+    table = jnp.pad(
+        cache.page_table.astype(jnp.int32),
+        ((0, 0), (0, table_w - pages_per_slot)),
     )
-    fanout_hb = max(1, min(pages_per_slot, 2048 // page_size))
-    while fanout_hb > 1 and fanout_hb * per_f + upcast_tmp > 12 * 2**20:
-        fanout_hb -= 1
-    # _force_per_head is a test hook: the per-head kernel is the fallback for
-    # working sets beyond VMEM (large bf16 pages / many kv heads), which the
-    # small shapes in tests never reach via the size gate alone.
-    use_hb = (not _force_per_head) and per_f + upcast_tmp <= 12 * 2**20
-    if use_hb:
-        num_steps = -(-pages_per_slot // fanout_hb)
-
-        def make_kv_map_hb(j):
-            def kv_map(b, ip, lengths_ref, table_ref):
-                pj = jnp.minimum(ip * fanout_hb + j, pages_per_slot - 1)
-                ip_c = jnp.minimum(
-                    pj,
-                    jnp.maximum(pl.cdiv(lengths_ref[b], page_size) - 1, 0),
-                )
-                if sliding_window is not None:
-                    lo = (
-                        jnp.maximum(lengths_ref[b] - sliding_window, 0)
-                        // page_size
-                    )
-                    clamped = jnp.maximum(ip_c, lo)
-                    if attention_sinks:
-                        # Logical page 0 (pinned sinks) keeps its own DMA.
-                        raw = ip * fanout_hb + j
-                        ip_c = jnp.where(raw == 0, ip_c, clamped)
-                    else:
-                        ip_c = clamped
-                return (table_ref[b * pages_per_slot + ip_c], 0, 0, 0)
-
-            return kv_map
-
-        q_spec = pl.BlockSpec(
-            (1, num_kv_heads, group_pad, d_pad), lambda b, ip, L, T: (b, 0, 0, 0)
-        )
-        kv_specs = [
-            pl.BlockSpec((1, num_kv_heads, page_size, d_pad), make_kv_map_hb(j))
-            for j in range(fanout_hb)
-        ]
-        sc_specs = [
-            pl.BlockSpec((1, num_kv_heads, 1, page_size), make_kv_map_hb(j))
-            for j in range(fanout_hb)
-        ]
-        out_shapes = [
-            jax.ShapeDtypeStruct(
-                (num_slots, num_kv_heads, group_pad, d_pad), q.dtype
-            )
-        ]
-        out_specs = [
-            pl.BlockSpec(
-                (1, num_kv_heads, group_pad, d_pad), lambda b, ip, L, T: (b, 0, 0, 0)
-            )
-        ]
-        if save_residuals:
-            out_shapes.append(
-                jax.ShapeDtypeStruct(
-                    (num_slots, num_kv_heads, group_pad, LANES), jnp.float32
-                )
-            )
-            out_specs.append(
-                pl.BlockSpec(
-                    (1, num_kv_heads, group_pad, LANES),
-                    lambda b, ip, L, T: (b, 0, 0, 0),
-                )
-            )
-
-        def wrapped_hb(lengths_ref, table_ref, *refs):
-            idx = 0
-            q_r = refs[idx]; idx += 1
-            k_rs = refs[idx : idx + fanout_hb]; idx += fanout_hb
-            k_ss = refs[idx : idx + fanout_hb] if quant else None
-            idx += fanout_hb if quant else 0
-            v_rs = refs[idx : idx + fanout_hb]; idx += fanout_hb
-            v_ss = refs[idx : idx + fanout_hb] if quant else None
-            idx += fanout_hb if quant else 0
-            o_r = refs[idx]; idx += 1
-            lse_r = refs[idx] if save_residuals else None
-            idx += int(save_residuals)
-            scr = refs[idx:]
-            _paged_decode_kernel_hb(
-                lengths_ref, table_ref, q_r, k_rs, k_ss, v_rs, v_ss, o_r,
-                lse_r, *scr,
-                scale2=sm_scale * LOG2E,
-                page_size=page_size,
-                pages_per_slot=pages_per_slot,
-                num_steps=num_steps,
-                fanout=fanout_hb,
-                window=sliding_window,
-                sinks=attention_sinks,
-                softcap_in=(
-                    None if logit_softcap is None else sm_scale / logit_softcap
-                ),
-                softcap_out=(
-                    None if logit_softcap is None else logit_softcap / sm_scale
-                ),
-            )
-
-        in_specs = [q_spec] + list(kv_specs)
-        inputs = [qg] + [k_pages] * fanout_hb
-        if quant:
-            in_specs += list(sc_specs)
-            inputs += [cache.k_scales] * fanout_hb
-        in_specs += list(kv_specs)
-        inputs += [v_pages] * fanout_hb
-        if quant:
-            in_specs += list(sc_specs)
-            inputs += [cache.v_scales] * fanout_hb
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(num_slots, num_steps),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((num_kv_heads, group_pad, LANES), jnp.float32),
-                pltpu.VMEM((num_kv_heads, group_pad, LANES), jnp.float32),
-                pltpu.VMEM((num_kv_heads, group_pad, d_pad), jnp.float32),
-            ],
-        )
-        results = pl.pallas_call(
-            wrapped_hb,
-            grid_spec=grid_spec,
-            out_shape=out_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(lengths, table_flat, *inputs)
-        out = results[0][:, :, :group, :head_dim].reshape(
-            num_slots, num_q_heads, head_dim
-        )
-        if save_residuals:
-            lse2 = results[1][:, :, :group, 0].reshape(num_slots, num_q_heads)
-            return out, lse2
-        return out
-
-    # Multi-page fanout: each grid step fetches `fanout` logical pages
-    # through separate index-mapped inputs (pages are non-contiguous, so one
-    # DMA each regardless) — amortizing the ~0.6us/step grid floor that made
-    # small pages read at half bandwidth. Target ~2048 rows per step.
-    fanout = max(1, min(pages_per_slot, 2048 // page_size))
-    num_steps = -(-pages_per_slot // fanout)
-
-    def last_live(b, lengths_ref):
-        return jnp.maximum(pl.cdiv(lengths_ref[b], page_size) - 1, 0)
-
-    def make_kv_map(j):
-        def kv_map(b, h, ip, lengths_ref, table_ref):
-            pj = jnp.minimum(ip * fanout + j, pages_per_slot - 1)
-            ip_c = jnp.minimum(pj, last_live(b, lengths_ref))
-            if sliding_window is not None:
-                lo = jnp.maximum(lengths_ref[b] - sliding_window, 0) // page_size
-                clamped = jnp.maximum(ip_c, lo)
-                if attention_sinks:
-                    # Logical page 0 (pinned sinks) keeps its own DMA.
-                    raw = ip * fanout + j
-                    ip_c = jnp.where(raw == 0, ip_c, clamped)
-                else:
-                    ip_c = clamped
-            # Native [P, H, page, D] pool indexing — no pre-transpose copy.
-            return (table_ref[b * pages_per_slot + ip_c], h, 0, 0)
-
-        return kv_map
-
-    def make_sc_map(j):
-        return make_kv_map(j)  # scales share the (phys, h, 0, 0) map
-
-    q_spec = pl.BlockSpec(
-        (1, 1, group_pad, d_pad), lambda b, h, ip, L, T: (b, h, 0, 0)
+    lengths = cache.lengths.astype(jnp.int32).reshape(num_slots, 1)
+    num_splits = _decode_splits(
+        num_slots, num_kv_heads, pages_per_slot * page_size // block_k
     )
-    kv_specs = [
-        pl.BlockSpec((1, 1, page_size, d_pad), make_kv_map(j))
-        for j in range(fanout)
+
+    pool = pl.BlockSpec(
+        (num_pages, None, page_size, d_pad), lambda b, h, s: (0, h, 0, 0)
+    )
+    in_specs = [
+        pl.BlockSpec((None, 1), lambda b, h, s: (b, 0)),
+        pl.BlockSpec((None, table_w), lambda b, h, s: (b, 0)),
+        pl.BlockSpec((None, None, g_pad, d_pad), lambda b, h, s: (b, h, 0, 0)),
+        pool,
+        pool,
     ]
-    sc_specs = [
-        pl.BlockSpec((1, 1, 1, page_size), make_sc_map(j))
-        for j in range(fanout)
-    ]
-    out_shapes = [
-        jax.ShapeDtypeStruct((num_slots, num_kv_heads, group_pad, d_pad), q.dtype)
+    inputs = [lengths, table, qg, k_pages, v_pages]
+    if quant:
+        scales = pl.BlockSpec(
+            (num_pages, None, None, page_size), lambda b, h, s: (0, h, 0, 0)
+        )
+        in_specs += [scales, scales]
+        inputs += [cache.k_scales, cache.v_scales]
+    out_shape = [
+        jax.ShapeDtypeStruct(
+            (num_slots, num_kv_heads, num_splits, g_pad, d_pad), jnp.float32
+        ),
+        jax.ShapeDtypeStruct(
+            (num_slots, num_kv_heads, num_splits, g_pad), jnp.float32
+        ),
     ]
     out_specs = [
-        pl.BlockSpec((1, 1, group_pad, d_pad), lambda b, h, ip, L, T: (b, h, 0, 0))
+        pl.BlockSpec((None, None, None, g_pad, d_pad),
+                     lambda b, h, s: (b, h, s, 0, 0)),
+        pl.BlockSpec((None, None, None, g_pad), lambda b, h, s: (b, h, s, 0)),
     ]
-    if save_residuals:
-        out_shapes.append(
-            jax.ShapeDtypeStruct(
-                (num_slots, num_kv_heads, group_pad, LANES), jnp.float32
-            )
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (1, 1, group_pad, LANES), lambda b, h, ip, L, T: (b, h, 0, 0)
-            )
-        )
-
-    def wrapped(lengths_ref, table_ref, *refs):
-        idx = 0
-        q_r = refs[idx]; idx += 1
-        k_rs = refs[idx : idx + fanout]; idx += fanout
-        k_ss = refs[idx : idx + fanout] if quant else None
-        idx += fanout if quant else 0
-        v_rs = refs[idx : idx + fanout]; idx += fanout
-        v_ss = refs[idx : idx + fanout] if quant else None
-        idx += fanout if quant else 0
-        o_r = refs[idx]; idx += 1
-        lse_r = refs[idx] if save_residuals else None
-        idx += int(save_residuals)
-        scr = refs[idx:]
-        _paged_decode_kernel(
-            lengths_ref, table_ref, q_r, k_rs, k_ss, v_rs, v_ss, o_r, lse_r,
-            *scr,
-            scale2=sm_scale * LOG2E,
-            page_size=page_size,
-            pages_per_slot=pages_per_slot,
-            num_steps=num_steps,
-            fanout=fanout,
-            window=sliding_window,
-            sinks=attention_sinks,
-            softcap_in=None if logit_softcap is None else sm_scale / logit_softcap,
-            softcap_out=None if logit_softcap is None else logit_softcap / sm_scale,
-        )
-
-    in_specs = [q_spec] + list(kv_specs)
-    inputs = [qg] + [k_pages] * fanout
-    if quant:
-        in_specs += list(sc_specs)
-        inputs += [cache.k_scales] * fanout
-    in_specs += list(kv_specs)
-    inputs += [v_pages] * fanout
-    if quant:
-        in_specs += list(sc_specs)
-        inputs += [cache.v_scales] * fanout
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_slots, num_kv_heads, num_steps),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((group_pad, LANES), jnp.float32),
-            pltpu.VMEM((group_pad, LANES), jnp.float32),
-            pltpu.VMEM((group_pad, d_pad), jnp.float32),
-        ],
+    kernel = functools.partial(
+        _paged_decode_kernel,
+        sm_scale=sm_scale, softcap=logit_softcap, window=sliding_window,
+        sinks=attention_sinks, quant=quant, page_size=page_size,
+        block_k=block_k, num_splits=num_splits,
     )
+    with jax.named_scope("paged_decode_attention"):
+        o_parts, lse_parts = pl.pallas_call(
+            kernel,
+            grid=(num_slots, num_kv_heads, num_splits),
+            in_specs=in_specs,
+            out_specs=out_specs,
+            out_shape=out_shape,
+            compiler_params=triton_params(num_warps=4, num_stages=3),
+            interpret=interpret,
+            backend="triton",
+            name="paged_decode_attention",
+        )(*inputs)
+        if num_splits == 1:
+            o, lse2 = o_parts[:, :, 0], lse_parts[:, :, 0]
+        else:
+            o, lse2 = merge_partial_attention(o_parts, lse_parts, axis=2)
 
-    results = pl.pallas_call(
-        wrapped,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(lengths, table_flat, *inputs)
-
-    out = results[0][:, :, :group, :head_dim].reshape(
+    out = o[:, :, :group, :head_dim].astype(q.dtype).reshape(
         num_slots, num_q_heads, head_dim
     )
     if save_residuals:
-        lse2 = results[1][:, :, :group, 0].reshape(num_slots, num_q_heads)
-        return out, lse2
+        return out, lse2[:, :, :group].reshape(num_slots, num_q_heads)
     return out

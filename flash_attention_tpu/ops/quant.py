@@ -98,11 +98,8 @@ def quantize_weight(w: jax.Array, *, contract_axes) -> QuantizedTensor:
     Serving weights are HBM-bandwidth-bound at decode batch sizes (the
     matmul reads the whole matrix once per step); storing them int8 with a
     per-output-channel fp32 scale halves the stream, and XLA fuses the
-    `int8 -> bf16 * scale` widening into the matmul's weight read
-    (measured v5e 2026-08-20, [32,4096]x[4096,11008]: bf16 123.9 us /
-    728 GB/s -> w8a16 66.1 us / 682 GB/s of int8 bytes — 1.9x; the
-    dynamic-activation w8a8 variant measured the same 65.2 us, so the
-    lossless-activation form wins).
+    `int8 -> bf16 * scale` widening into the matmul's weight read (the
+    activations stay lossless; the gain on the H100 is not measured yet).
 
     contract_axes: the axes the matmul contracts over (per-channel scale
     spans the remaining output axes; scales keep rank with size-1

@@ -1,6 +1,6 @@
 """fp32 reference ("oracle") attention.
 
-TPU-native re-design of the reference's CPU oracle ``cpu_attention``
+Re-design of the reference's CPU oracle ``cpu_attention``
 (flash_attention.cu:668-697): a naive, fully-materialized attention with fp32
 accumulation used as the correctness judge for every fused kernel. The numerics
 contract is identical — fp32 score accumulation, softmax with a subtracted row

@@ -1,531 +1,142 @@
-"""Adaptive block-size dispatch table.
+"""Tile choice for the Triton-route kernels, derived from shape.
 
-TPU-native re-design of the reference's four-tier adaptive dispatcher C6
-(flash_attention.cu:606-663): where the CUDA kernel keys (causal, seq>=2048)
-to pick BLOCK_M/BLOCK_N/warps/occupancy/grid-order/load-mode, we key
-(seq, causal) to pick Pallas block sizes. The CUDA grid-swap/reversed-Q causal
-balancing trick (flash_attention.cu:103-111) has no TPU analog — Pallas grids
-are not SM-scheduled — so causal work-skipping is done with clamped KV index
-maps + predicated compute inside the kernel instead.
+The reference picked BLOCK_M/BLOCK_N, warps and occupancy from four tiers
+keyed on (causal, seq >= 2048) (flash_attention.cu:606-663). On Hopper the
+same knobs exist under Triton: the Q tile held across the in-block KV loop
+(``block_q``), the KV tile streamed through it (``block_kv``), the warps of
+one program (``num_warps``) and the depth of the asynchronous K/V ring in
+shared memory (``num_stages``). This module derives them from the problem
+shape under three hardware rules:
 
-Tuned on TPU v5e with IN-BENCH sweeps (FA_BENCH_SWEEP=1 rows timed inside
-the bench process itself — out-of-process sweeps drift 6-8% on this chip
-and are no longer trusted for dispatch). Dispatch winners at batch=1,
-heads=32, head_dim=128, bf16 (hu = head_unroll per-head chains, pipe =
-sub-step software pipeline; BENCH_DETAIL.json 2026-08-20):
-
-  seq      non-causal                          causal
-  512      (512,512,h4)       142.7 TF         (512,512,h8,sub128,pipe)        83 TF
-  768      (384,768,h4)       155.8 TF         (768,768,h8,sub128)            106 TF
-  1024     (1024,1024,h2)     161.5 TF         (1024,1024,h4,sub256)          118 TF
-  2048     (512,2048,h2)      159.3 TF         (2048,2048,h2,sub256)          138 TF
-  4096     (1024,1024,h2,hu)  166.6 TF         (1024,1024,h2,sub256,hu,pipe)  132 TF
-  8192     (1024,1024,h2,hu)  175.2 TF         (1024,1024,h2,sub256,hu,pipe)  152 TF
-  16384    (1024,1024,h2,hu)  178.1 TF         (1024,1024,h2,sub256,hu,pipe)  166 TF
-
-(v5e bf16 peak 197 TF => non-causal long-seq is ~90% of roofline. The
-single-tile rows use the kernel's single-step specialization — plain softmax
-with no online-softmax scratch — worth ~1.8x at seq 512. Short causal rows
-are HBM-wall-bound, not MXU-bound: causal credits half the FLOPs for the
-same Q/K/V/O bytes.)
-
-The emergent rules: (1024,1024) tiles keep the fp32 score tile plus
-double-buffered KV inside the ~16 MB VMEM budget; block_h=2 halves the number
-of grid steps (per-step fixed costs and DMA descriptor overhead amortize over
-two heads' batched matmuls); at seq <= 768 the whole sequence fits one tile
-and larger head batches win until the hb-scaled score tiles hit the VMEM
-ceiling (h8 at bq=bkv=512 non-causal; causal also carries mask tiles so h4).
+  * Triton tiles are powers of two, and ``tl.dot`` wants every edge >= 16;
+  * a tile never exceeds the (power-of-two padded) sequence it covers, so
+    short sequences do not pad to a large tile;
+  * the shared memory a program stages (the resident tile plus
+    ``num_stages`` copies of the streamed tiles) stays within the 227 KB a
+    Hopper block may use.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from flash_attention_tpu.ops.common import next_pow2
+
+# Shared memory one Hopper thread block may use (H100 / H200).
+SMEM_BUDGET = 227 * 1024
+MIN_TILE = 16
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockSizes:
-    """Block sizes for the fused forward kernel.
+    """Tile sizes and launch shape of one Triton-route attention kernel.
 
-    block_q:  Q rows per grid step (the reference's BLOCK_M, 64/128).
-    block_kv: KV rows per grid step (the reference's BLOCK_N, 64/128).
-    Both must be multiples of 128 (TPU lane width / MXU edge).
-    block_h:  heads per grid step (batched matmuls); >1 amortizes per-step
-      fixed costs at short sequence lengths — the TPU analog of the
-      reference's MIN_BLOCKS=2 short-seq occupancy boost
-      (flash_attention.cu:618). Applied only when it divides batch*heads and
-      the layout allows (MHA, or GQA when block_h spans whole groups).
-    block_sub: causal single-superblock sub-tiling width (0 = off). When the
-      whole (q, kv) problem fits one block pair, the kernel unrolls over
-      block_sub-row Q sub-blocks, each doing ONE wide MMA over only its live
-      KV prefix — plain per-row-block softmax, no online-softmax scratch, and
-      the masked-region MXU waste drops from ~50% (full-tile diagonal) to
-      ~1/(n+1) for n = block_q / block_sub sub-blocks.
+    block_q:  Q rows per program (the reference's BLOCK_M).
+    block_kv: KV rows per inner-loop step (the reference's BLOCK_N).
+    num_warps: warps per program.
+    num_stages: software-pipeline depth of the streamed tiles.
+
+    In the backward pass the dkv kernel holds a ``block_kv`` tile and loops
+    over ``block_q`` tiles; the dq kernel holds ``block_q`` and loops over
+    ``block_kv``.
     """
 
-    block_q: int = 1024
-    block_kv: int = 1024
-    block_h: int = 1
-    block_sub: int = 0
-    # Backward only: run the FUSED one-pass backward kernel (dq + dk + dv
-    # from ONE score/softmax recompute per block pair — 5 MMAs + 1 exp vs
-    # the two-pass kernels' 9 + 2, and K/V+Q/dO stream once instead of
-    # twice). Requires whole-KV-RANGE fp32 dk/dv accumulators in VMEM
-    # (2*range*d*4 bytes per head-batch); kv lengths beyond fused_kv_chunk
-    # run the kernel once per KV chunk (each chunk's dk/dv complete, fp32
-    # dq partials summed — the score-recompute total is unchanged). MHA
-    # without packed segments only. v5e sweep 2026-08-19 (one process):
-    # causal 2048 117.1 -> 137.6 eff-TF (h2 sub128), 4096 111.6 -> 135.7
-    # (h1 sub256), 1024 95.1 -> 121.7.
-    bwd_fused: bool = False
-    # Max KV rows covered by ONE fused call (0 = whole KV in one call). The
-    # fp32 dk/dv accumulators are 2*chunk*d*4*block_h bytes: 4096 rows at
-    # d=128 h1 is 4.2 MB — the VMEM sweet spot measured on v5e.
-    fused_kv_chunk: int = 0
-    # Forward: keep head_dim=64 UN-padded (block minor dim 64 = the full
-    # array dim, which Mosaic accepts) instead of zero-padding to 128 in HBM.
-    # Halves Q/K/V/O HBM bytes and VMEM footprint for GPT-2-class models;
-    # MXU utilization of a 64-contraction matmul is the same as the padded
-    # one, so this is a pure bandwidth win wherever the row is HBM-bound.
-    # Off by default pending the on-chip sweep (d=64 configs fall back to
-    # generic tiers today — tuning is keyed at d=128).
-    d64_unpadded: bool = False
-    # Forward: break the per-grid-step MXU->VPU->MXU serial chain. The
-    # online body's batched ops make one dependency chain per grid step
-    # (QK matmul -> softmax -> PV matmul), so the MXU idles through every
-    # VPU softmax phase. head_unroll splits the head batch into per-head
-    # chains with ALL QK matmuls issued first: head h+1's matmul runs
-    # while head h's softmax occupies the VPU. Same VMEM (the batched
-    # score tile was [hb, bq, bkv] fp32 already). MHA only (kv_repeat
-    # must be 1) and head-independent masks only (no segments).
-    head_unroll: bool = False
-    # Causal diagonal / superblock sub-tiling: 2-stage software pipeline
-    # over the sub-blocks — sub-block i+1's QK matmul is issued BEFORE
-    # sub-block i's softmax/PV phase, hiding each sub-step's VPU phase
-    # behind the next one's MXU work. Costs one extra live sub score
-    # tile of VMEM.
-    diag_pipe: bool = False
-    # Residuals forward: emit the LSE output 1 lane wide ([B*H, S, 1])
-    # instead of LANES(128)-broadcast. The broadcast write moves 512 B/row
-    # of pure padding — 2x the output tensor's own bytes at d=128 bf16 —
-    # on EVERY jax.grad forward. The backward already consumes 1-lane
-    # blocks, so only the forward's out BlockSpec changes. Off by default
-    # pending the on-chip sweep (narrow stores can hit Mosaic layout
-    # quirks; verify standalone compile + bench before dispatching).
-    lse_narrow: bool = False
+    block_q: int = 128
+    block_kv: int = 64
+    num_warps: int = 4
+    num_stages: int = 3
 
     def __post_init__(self):
-        if self.block_q % 128 or self.block_kv % 128:
-            raise ValueError(f"block sizes must be multiples of 128, got {self}")
-        if self.block_h < 1:
-            raise ValueError(f"block_h must be >= 1, got {self}")
-        if self.block_sub and (self.block_sub % 128 or self.block_q % self.block_sub):
-            raise ValueError(
-                f"block_sub must be a multiple of 128 dividing block_q, got {self}"
-            )
+        for name in ("block_q", "block_kv"):
+            b = getattr(self, name)
+            if b < MIN_TILE or b & (b - 1):
+                raise ValueError(
+                    f"{name} must be a power of two >= {MIN_TILE}, got {self}"
+                )
+        if self.num_warps not in (1, 2, 4, 8, 16):
+            raise ValueError(f"num_warps must be a power of two <= 16, got {self}")
+        if self.num_stages < 1:
+            raise ValueError(f"num_stages must be >= 1, got {self}")
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeBlockSizes:
-    """Block sizes for the decode (single-token query) kernel."""
+    """KV rows per split for dense-cache decode (the flash-decoding gate)."""
 
-    block_kv: int = 512
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return max(m, -(-x // m) * m)
+    block_kv: int = 4096
 
 
-def select_block_sizes(
-    seq: int, *, causal: bool, head_dim: int = 128, save_residuals: bool = False,
-    group: int = 1, kv_seq: int | None = None, windowed=False,
-    packed: bool = False,
-) -> BlockSizes:
-    """Pick forward block sizes for a (seq, causal, residuals, group) config.
+def clamp_to_seq(bs: BlockSizes, q_len: int, kv_len: int) -> BlockSizes:
+    """Shrink a tile choice so no tile exceeds its padded sequence."""
+    bq = max(MIN_TILE, min(bs.block_q, next_pow2(q_len)))
+    bkv = max(MIN_TILE, min(bs.block_kv, next_pow2(kv_len)))
+    if (bq, bkv) == (bs.block_q, bs.block_kv):
+        return bs
+    return dataclasses.replace(bs, block_q=bq, block_kv=bkv)
 
-    Wraps the raw tier table with the head-batch group resolution _fwd_impl
-    applies at trace time (a GQA head-block must span whole KV groups, else it
-    runs unbatched): the returned config states the block_h that will actually
-    execute, so sweeps and introspection never read a head batch the kernel
-    silently drops. The GQA-measured tiers in the raw table already return
-    group-spanning batches for the swept shapes; unswept (group, seq) combos
-    degrade here explicitly instead of inside the kernel.
-    """
-    bs = _select_fwd_raw(
-        seq, causal=causal, head_dim=head_dim,
-        save_residuals=save_residuals, group=group, kv_seq=kv_seq,
-        windowed=windowed, packed=packed,
-    )
-    if group > 1 and bs.block_h > 1 and bs.block_h % group:
-        bs = dataclasses.replace(bs, block_h=1)
+
+def fwd_smem_bytes(bs: BlockSizes, head_dim: int, itemsize: int = 2) -> int:
+    """Shared memory the forward stages: the resident Q tile plus
+    ``num_stages`` copies of one K and one V tile."""
+    d = next_pow2(head_dim)
+    return (bs.block_q + 2 * bs.num_stages * bs.block_kv) * d * itemsize
+
+
+def bwd_smem_bytes(bs: BlockSizes, head_dim: int, itemsize: int = 2) -> int:
+    """Upper bound over the two backward kernels: the dkv kernel keeps K and
+    V resident and streams Q and dO; the dq kernel keeps Q and dO and
+    streams K and V."""
+    d = next_pow2(head_dim)
+    dkv = (2 * bs.block_kv + 2 * bs.num_stages * bs.block_q) * d * itemsize
+    dq = (2 * bs.block_q + 2 * bs.num_stages * bs.block_kv) * d * itemsize
+    return max(dkv, dq)
+
+
+def _fit(bs: BlockSizes, smem, head_dim: int) -> BlockSizes:
+    while smem(bs, head_dim) > SMEM_BUDGET and bs.num_stages > 1:
+        bs = dataclasses.replace(bs, num_stages=bs.num_stages - 1)
+    while smem(bs, head_dim) > SMEM_BUDGET and bs.block_kv > MIN_TILE:
+        bs = dataclasses.replace(bs, block_kv=bs.block_kv // 2)
     return bs
 
 
-def _select_fwd_raw(
-    seq: int, *, causal: bool, head_dim: int = 128, save_residuals: bool = False,
-    group: int = 1, kv_seq: int | None = None, windowed=False,
-    packed: bool = False,
+def select_block_sizes(
+    seq: int, *, kv_seq: int | None = None, head_dim: int = 128
 ) -> BlockSizes:
-    """Raw (seq, causal, residuals) tier table.
+    """Forward tiles for a ``seq``-row problem (``kv_seq`` KV rows).
 
-    Mirrors the dispatch keying of flash_attention.cu:620-661; values from the
-    v5e autotune sweep (see module docstring). The residuals path (LSE output
-    — used under jax.grad, by ring attention, and by split merging) carries an
-    extra fp32 output block, which pushes the (1024,1024,h2) configs over the
-    16 MB scoped-VMEM limit; its sweep favors (512,1024,h2) instead (within
-    ~2% of the non-residual rates at long seq: 166.6 TF non-causal / 137.3 TF
-    causal at 8K).
+    A 128-row Q tile with 64-row KV steps keeps the fp32 accumulator of a
+    d=128 tile in registers at four warps; head_dim 64 affords 128-row KV
+    steps. At d=128 a two-deep K/V ring beat a three-deep one on the H100
+    on causal, non-causal, GQA and packed shapes. Causal masking, GQA
+    grouping, windows, packed segments and the LSE output change only the
+    masks and index maps, not the tiles.
     """
-    pad_seq = _ceil_to(seq, 128)
-    if packed and causal and not windowed and pad_seq > 2048:
-        # Packed sequences need SQUARE aligned blocks for the runtime
-        # route bits (mask-free single-doc interiors + fused sub-tiled
-        # single-doc diagonals) — the generic residuals tier's (512,1024)
-        # shape disables them, leaving every live step fully masked.
-        # head_unroll is a no-op under segments. Residuals: h1 + 1-lane
-        # LSE (the (1024,1024,h2)+LSE combination exceeds scoped VMEM —
-        # same cliff as the unpacked residuals tier).
-        if save_residuals:
-            return BlockSizes(
-                block_q=1024, block_kv=1024, block_h=1, block_sub=256,
-                diag_pipe=True, lse_narrow=True,
-            )
-        return BlockSizes(
-            block_q=1024, block_kv=1024, block_h=2, block_sub=256,
-            diag_pipe=True,
-        )
-    if (
-        head_dim == 64 and causal and not windowed and group == 1
-        and not save_residuals and pad_seq >= 1024
-        and (kv_seq is None or _ceil_to(kv_seq, 128) == pad_seq)
-    ):
-        # GPT-2-class d=64, causal self-attention: keep the minor dim
-        # unpadded (half the HBM bytes and half the MXU contraction work
-        # of the zero-padded path). In-bench sweep 2026-08-20: 1024
-        # 42.1 -> 47.1 TF (+11.8%, superblock h4), 4096 55.5 -> 59.9
-        # (+7.9%, tri grid hu+pipe). Unswept d64 shapes (residuals, GQA,
-        # windowed, non-causal, short seqs) keep the padded generic tiers.
-        if pad_seq <= 1024:
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=4,
-                block_sub=256 if pad_seq % 256 == 0 else 128,
-                diag_pipe=True, d64_unpadded=True,
-            )
-        return BlockSizes(
-            block_q=1024, block_kv=1024, block_h=2, block_sub=256,
-            head_unroll=True, diag_pipe=True, d64_unpadded=True,
-        )
-    if head_dim > 128:
-        # Tuned at head_dim=128; larger heads scale the VMEM accumulators, so
-        # fall back to unbatched heads rather than risk scoped-VMEM OOM.
-        return BlockSizes(block_q=min(1024, pad_seq), block_kv=min(1024, pad_seq))
-    if windowed and causal:
-        # Sliding window (`windowed` carries the window VALUE when the
-        # caller knows it; True means unknown). Aligned windows (1024
-        # multiples) at long seq take the window_lead sub-tiled path
-        # (square aligned blocks: the leading-edge block is a sub-tiled
-        # strict-upper triangle, interiors are mask-free, the diagonal is
-        # the fused sub-tiled one) — in-bench sweep 2026-08-20 @16K:
-        # w=4096 118.9 -> 135.9 band-TF (hu+pipe), w=1024 70.3 -> 79.0.
-        aligned = isinstance(windowed, int) and not isinstance(windowed, bool) \
-            and windowed % 1024 == 0
-        if aligned and pad_seq > 2048 and not save_residuals:
-            return BlockSizes(
-                block_q=1024, block_kv=1024, block_h=2, block_sub=256,
-                head_unroll=True, diag_pipe=True,
-            )
-        # Unaligned windows / short seqs: stream KV in 1024-row blocks
-        # through the tri grid's window-aware enumeration with the masked
-        # online body (the single-KV-block tiers would degenerate into one
-        # giant masked single-step score tile — a compile-time VMEM cliff
-        # caught by tools/compile_check.py; the window mask temporaries
-        # also need the halved q block).
-        return BlockSizes(
-            block_q=min(512, pad_seq), block_kv=min(1024, pad_seq), block_h=2
-        )
-    if kv_seq is not None and _ceil_to(kv_seq, 128) > 2 * pad_seq:
-        # Chunked prefill / cross attention: kv much longer than q, so the
-        # short-seq single-superblock configs keyed on min(q, kv) don't
-        # apply — the grid is multi-KV-block and their large head batches
-        # blow scoped VMEM (measured: (512,512,h8) against kv=4096 OOMs by
-        # ~3.8M on v5e — caught driving ServingEngine chunked prefill on
-        # chip). Stream KV in 1024-row blocks with the q chunk resident,
-        # h2, as in the long-seq residuals config (same VMEM envelope).
-        # block_h must span whole KV groups or _fwd_impl silently drops to
-        # hb=1: for GQA use h=group (the (512,1024,h4) envelope measured for
-        # the long-seq GQA tier below); group 8+ head batches blow scoped
-        # VMEM, so stay unbatched there.
-        bh = group if group in (2, 4) else (2 if group == 1 else 1)
-        return BlockSizes(
-            block_q=min(512, pad_seq),
-            block_kv=min(1024, _ceil_to(kv_seq, 128)),
-            block_h=bh,
-        )
-    if group in (2, 4) and pad_seq > 1024:
-        # GQA: block_h must span whole KV groups; the generic h2 long-seq
-        # configs don't divide, so use the GQA-swept winners. At <= 2048 the
-        # causal single-superblock sub-tiled form applies with h = 4 (spans
-        # whole groups; hb_kv = 4/group): 7B-class (32q/8kv) causal 2048
-        # measures 148.6 TF vs 102.8 for the tri grid (v5e, standalone-
-        # compile verified; h8 exceeds scoped VMEM). Longer seqs keep
-        # (512,1024,h=group) in-kernel KV expansion: 117->145 TF at 8192 vs
-        # h1. The residuals variant halves block_q: the LSE output block
-        # pushes (512,1024,h4) 876KB over the scoped-VMEM limit.
-        if causal and pad_seq <= 2048 and not save_residuals and group == 4:
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=4, block_sub=128,
-                diag_pipe=True,
-            )
-        if save_residuals:
-            return BlockSizes(block_q=256, block_kv=1024, block_h=group)
-        return BlockSizes(block_q=512, block_kv=1024, block_h=group)
-    if save_residuals:
-        if causal:
-            # Subtile variants with one head-batch step of VMEM headroom for
-            # the extra fp32 LSE output block (all verified to compile
-            # STANDALONE on v5e — the in-scan benchmark hides ~1 MB).
-            if pad_seq <= 768:
-                return BlockSizes(
-                    block_q=pad_seq, block_kv=pad_seq, block_h=4, block_sub=128
-                )
-            if pad_seq <= 1024:
-                return BlockSizes(
-                    block_q=pad_seq, block_kv=pad_seq, block_h=4, block_sub=128
-                )
-            if pad_seq <= 2048:
-                # lse_narrow (1-lane LSE output) verified on-chip 2026-08-19:
-                # the fused-bwd train row moves 137.6 -> 143.5 eff-TF with
-                # it. At <= 1024 it measured level-to-slightly-worse
-                # (121.5 -> 120.3), so only the 2048 tier and the streaming
-                # long-seq tiers below take it.
-                sub = 256 if pad_seq % 256 == 0 else 128
-                return BlockSizes(
-                    block_q=pad_seq, block_kv=pad_seq, block_h=2,
-                    block_sub=sub, lse_narrow=True,
-                )
-            # head_unroll +5.1% (in-bench 2026-08-20: 138.9 vs 132.2 TF
-            # @8192 under-grad forward).
-            return BlockSizes(
-                block_q=512, block_kv=1024, block_h=2, lse_narrow=True,
-                head_unroll=True,
-            )
-        if pad_seq <= 768:
-            return BlockSizes(block_q=pad_seq, block_kv=pad_seq, block_h=2)
-        return BlockSizes(
-            block_q=512, block_kv=min(1024, pad_seq), block_h=2,
-            lse_narrow=pad_seq > 2048,
-        )
-    if causal:
-        # Single-superblock sub-tiled configs (block_sub, v5e sweep
-        # 2026-08-17): per-128-row live-prefix MMAs cut masked-region MXU
-        # waste from ~50% (full-tile diagonal) to ~1/(n+1), and the plain
-        # per-row-block softmax drops the online (m, l, acc) state entirely.
-        # Measured (b=1, h=32, d=128): 512 h8 82 TF (was 69), 768 h8 105
-        # (was 79), 1024 h4 116 (was 81), 2048 h2 131 (was 94). At 4096 the
-        # h1-only single-superblock loses to the tri grid (120 vs 125), and
-        # h8 @ 1024 / h4 @ 2048 exceed scoped VMEM when compiled standalone.
-        # NOTE: 512 causal is HBM-wall-bound at ~105 TF (QKVO bytes are
-        # constant while causal credits half the FLOPs), so ~80 TF is ~78%
-        # of the true ceiling, not 42%.
-        if pad_seq <= 512:
-            # diag_pipe on the superblock sub-steps: +2.9% in-bench
-            # (83.2 vs 80.9 TF, 2026-08-20 in-process sweep).
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=8, block_sub=128,
-                diag_pipe=True,
-            )
-        if pad_seq <= 768:
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=8, block_sub=128
-            )
-        if pad_seq <= 1024:
-            sub = 256 if pad_seq % 256 == 0 else 128
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=4, block_sub=sub
-            )
-        if pad_seq <= 2048:
-            # NOTE 2026-08-20: (h4, sub128, pipe) measured 141.8 vs 134.6
-            # TF INSIDE the bench scan but FAILS the standalone compile
-            # gate (scoped VMEM +3.8M — the scan shares buffers), and
-            # (h2, sub128, pipe) measured 131.1 in-process — sub256 h2
-            # stays the best standalone-compiling variant.
-            sub = 256 if pad_seq % 256 == 0 else 128
-            return BlockSizes(
-                block_q=pad_seq, block_kv=pad_seq, block_h=2, block_sub=sub
-            )
-        # Multi-block tri grid with DIAG sub-tiling + per-head chain
-        # unrolling + 2-stage diag pipeline. In-BENCH sweep 2026-08-20
-        # (candidates timed in the bench process itself, same scan
-        # lengths — out-of-process sweeps drift 6-8% on this chip and are
-        # no longer trusted for dispatch): head_unroll + diag_pipe at
-        # sub256 beat the plain sub512/sub256 dispatch at every long seq
-        # (4096: 132.2 vs 128.5; 8192: 154.9 vs 150.2; 16K: 167.4 vs
-        # 156.6 TF). hu splits each grid step's batched QK->softmax->PV
-        # chain into per-head chains with both QK matmuls issued first
-        # (MXU works through the VPU softmax phase); pipe does the same
-        # across the diagonal's sub-steps.
-        return BlockSizes(
-            block_q=1024, block_kv=1024, block_h=2, block_sub=256,
-            head_unroll=True, diag_pipe=True,
-        )
-    # Non-causal (v5e re-sweep 2026-08-17, after the pre-PV normalize and the
-    # no-scratch single-KV-block specialization): 512 (512,512,h4) 142 TF,
-    # 768 (384,768,h4) 154 (the full-tile (768,768,h4) hits a Mosaic layout
-    # pathology at 6 TF — avoid), 1024 (1024,1024,h2) 164, 2048
-    # (512,2048,h2) 160. At 4096+ the single-KV-block form loses to the
-    # online (1024,1024,h2) path (136-139 vs 161-171 TF) — one giant KV
-    # block per head starves the pipeline.
-    if pad_seq <= 512:
-        return BlockSizes(block_q=pad_seq, block_kv=pad_seq, block_h=4)
-    if pad_seq <= 768:
-        return BlockSizes(block_q=384 if pad_seq == 768 else pad_seq,
-                          block_kv=pad_seq, block_h=4)
-    if pad_seq <= 1024:
-        return BlockSizes(block_q=pad_seq, block_kv=pad_seq, block_h=2)
-    if pad_seq <= 2048:
-        return BlockSizes(block_q=512, block_kv=pad_seq, block_h=2)
-    # head_unroll: in-bench sweep 2026-08-20, +6.7% @4096 (170.4 vs
-    # 159.7), +5.0% @8192 (174.4 vs 166.0) — per-head chains let the MXU
-    # run through the VPU softmax phase.
-    return BlockSizes(block_q=1024, block_kv=1024, block_h=2, head_unroll=True)
+    kv_seq = seq if kv_seq is None else kv_seq
+    if head_dim <= 64:
+        bs = BlockSizes(block_q=128, block_kv=128, num_warps=4, num_stages=3)
+    else:
+        bs = BlockSizes(block_q=128, block_kv=64, num_warps=4, num_stages=2)
+    return _fit(clamp_to_seq(bs, seq, kv_seq), fwd_smem_bytes, head_dim)
 
 
 def select_bwd_block_sizes(
-    seq: int, *, causal: bool, head_dim: int = 128, group: int = 1,
-    packed: bool = False, windowed: bool = False, cross: bool = False,
+    seq: int, *, kv_seq: int | None = None, head_dim: int = 128
 ) -> BlockSizes:
-    """Block sizes for the backward kernels.
-
-    MHA unpacked self-attention dispatches the FUSED one-pass backward
-    (dq + dk + dv from one score recompute; KV-chunked past 4096 rows so
-    the fp32 dk/dv accumulators fit VMEM). v5e sweep 2026-08-19, fwd+bwd
-    eff-TF at b=1, h=32, d=128 (two-pass dispatch -> fused winner):
-
-      causal:  512 65.1 -> 91.7 (h8 sub128); 1024 95.1 -> 121.5 (h2
-      sub128); 2048 117.1 -> 143.5 (h2 sub128 + narrow-LSE resfwd); 4096
-      111.6 -> 135.7 (1024x1024 h1 sub256); 8192 114.1 -> 123.6 (512x512
-      h1 sub128, kv-chunk 4096 — the 1024-block variant OOMs chunked).
-      non-causal: 2048 133.2 -> 161.5; 4096 131.5 -> 171.1; 8192 134.4 ->
-      165.9; 16384 -> 168.4 (all 512x1024 h1, kv-chunk 4096 past 4096).
-
-    The fused kernel needs group == 1 and unpacked rows; past the chunk
-    size it also needs plain causal self-attention (no window, no q/kv
-    length mismatch). Callers pass those facts so GQA / packed / windowed
-    configs keep the two-pass-tuned tiers:
-
-      * causal two-pass <= 2048: single-superblock sub-tiled, head-batched
-        ((2048,2048,h2,sub128) 113.9 vs 112.7 at h1).
-      * causal two-pass > 2048: tri grid with diag sub-tiling + head
-        batching — (512,512,h4,sub128) 114.3 eff-TF @8K.
-      * non-causal two-pass: single-KV-block forms to 4096, (512,512,h4)
-        head-batched beyond.
-    """
-    pad_seq = _ceil_to(seq, 128)
-    # Packed self-attention now runs the fused kernel too (in-kernel
-    # liveness + segment mask); flash_attention_bwd's runtime gate falls
-    # back to the two-pass path for the shapes it can't prove (ragged /
-    # unaligned), where these tiers remain reasonable.
-    fused_ok = group == 1 and head_dim <= 128 and (not packed or causal)
-    if windowed or cross:
-        # Two-pass tiers for sliding windows and q/kv length mismatches:
-        # the fused superblock configs below would materialize window-less
-        # full score tiles (window disables their sub-tiling) or whole-KV
-        # accumulators keyed on the SHORTER side (cross attention keys seq
-        # on min(q, kv) while the accumulators scale with kv). Both are
-        # VMEM cliffs; neither shape is a training hot path.
-        fused_ok = False
-    if windowed and causal:
-        # The superblock/diag sub-tiled two-pass tiers below also assume no
-        # window (the kernels disable sub-tiling under one, leaving full
-        # masked tiles — a 33 MB score tile at 2048, compile-gate verified).
-        # Streaming blocks with in-kernel band masks instead.
-        if pad_seq <= 2048:
-            return BlockSizes(block_q=256, block_kv=min(1024, pad_seq))
-        return BlockSizes(block_q=512, block_kv=512)
-    if fused_ok:
-        if causal:
-            if packed:
-                # Packed fused grid with runtime routing (mask-free
-                # single-doc interiors + sub-tiled single-doc diagonals
-                # via the prefetched route table); blocks stay <= 1024 to
-                # keep the transposed fp32 score tile in VMEM.
-                if pad_seq <= 1024:
-                    return BlockSizes(
-                        512, 512, 2, 128, bwd_fused=True, diag_pipe=True
-                    )
-                return BlockSizes(
-                    1024, 1024, 1, 256, bwd_fused=True, fused_kv_chunk=2048,
-                    diag_pipe=True,
-                )
-            if pad_seq <= 512:
-                return BlockSizes(pad_seq, pad_seq, 8, 128, bwd_fused=True)
-            if pad_seq <= 2048:
-                # In-bench 2026-08-20: sub128 + the fused-backward
-                # sub-step pipeline beat the unpiped sub256 149.6 vs
-                # 140.1 eff-TF @2048 (sub256+pipe exceeds scoped VMEM —
-                # the pipe keeps one extra sub score tile live).
-                return BlockSizes(
-                    pad_seq, pad_seq, 2, 128, bwd_fused=True, diag_pipe=True
-                )
-            if pad_seq <= 4096:
-                # The whole-KV (1024,1024,h1,sub256) form measured 135.7 in
-                # the scan wrapper but FAILS the standalone compile gate
-                # (the scan shares ~1 MB of buffers); chunking the KV range
-                # halves the fp32 accumulators and passes standalone at an
-                # equal 136.3 eff-TF (+22% over the two-pass 111.6).
-                return BlockSizes(
-                    1024, 1024, 1, 256, bwd_fused=True, fused_kv_chunk=2048,
-                    diag_pipe=True,
-                )
-            # In-bench sweep 2026-08-20: the 4096 tier's own
-            # (1024,1024,h1,sub256,k2048) also wins at 8192 (136.6 vs
-            # 131.3 eff-TF for the old (512,512,h2,sub128,k2048)); the
-            # sub-step pipeline adds +1.4%.
-            return BlockSizes(
-                1024, 1024, 1, 256, bwd_fused=True, fused_kv_chunk=2048,
-                diag_pipe=True,
-            )
-        if pad_seq <= 512:
-            return BlockSizes(pad_seq, pad_seq, 2, bwd_fused=True)
-        if pad_seq <= 1024:
-            return BlockSizes(pad_seq, pad_seq, 1, bwd_fused=True)
-        if pad_seq <= 4096:
-            return BlockSizes(512, 1024, 1, bwd_fused=True)
-        return BlockSizes(
-            512, 1024, 1, bwd_fused=True, fused_kv_chunk=4096
-        )
-    if causal and 128 < pad_seq <= 2048 and pad_seq % 128 == 0:
-        return BlockSizes(
-            block_q=pad_seq, block_kv=pad_seq, block_h=2, block_sub=128
-        )
-    if not causal:
-        if pad_seq <= 1024:
-            return BlockSizes(block_q=pad_seq, block_kv=pad_seq)
-        if pad_seq <= 2048:
-            return BlockSizes(block_q=512, block_kv=pad_seq)
-        if pad_seq <= 4096:
-            return BlockSizes(block_q=256, block_kv=pad_seq)
-        return BlockSizes(block_q=512, block_kv=512, block_h=4)
-    if pad_seq <= 2048:
-        return BlockSizes(
-            block_q=min(256, pad_seq), block_kv=min(1024, pad_seq)
-        )
-    return BlockSizes(block_q=512, block_kv=512, block_h=4, block_sub=128)
+    """Backward tiles: 64 x 64 at four warps and two stages. The backward
+    keeps two resident tiles and two fp32 accumulators per program, so its
+    tiles are half the forward's."""
+    kv_seq = seq if kv_seq is None else kv_seq
+    bs = BlockSizes(block_q=64, block_kv=64, num_warps=4, num_stages=2)
+    return _fit(clamp_to_seq(bs, seq, kv_seq), bwd_smem_bytes, head_dim)
 
 
 def select_decode_block_sizes(kv_seq: int) -> DecodeBlockSizes:
-    """Decode KV block: as large as VMEM comfortably allows.
-
-    Decode is grid-step-overhead bound at small blocks (~0.6us/step floor on
-    v5e regardless of payload): measured at batch=32, 32q/8kv heads, seq=8192
-    the 512->4096 block jump takes bf16 12.7k -> 22.6k tok/s (759 GB/s, 93%
-    of HBM peak) and int8 13.1k -> 41.1k tok/s (1.8x bf16 — the quantization
-    win only materializes with big blocks).
-    """
-    pad = _ceil_to(kv_seq, 128)
-    bk = min(4096, pad)
-    # Largest 128-multiple divisor of the padded length: a non-dividing
-    # block would force decode_attention to pad-copy the whole cache per
-    # step (e.g. 6144 with a blind 4096 block pads to 8192).
-    while pad % bk:
+    """Largest 128-multiple divisor of the 128-padded cache length, capped
+    at 4096 — the split unit :func:`ops.decode.should_split_decode` reasons
+    about."""
+    seq_pad = -(-kv_seq // 128) * 128
+    bk = min(4096, seq_pad)
+    while seq_pad % bk:
         bk -= 128
     return DecodeBlockSizes(block_kv=bk)

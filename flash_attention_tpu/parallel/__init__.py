@@ -1,7 +1,7 @@
 """Multi-chip scaling: mesh construction, shard_map wrappers, ring attention.
 
 The reference is single-GPU (SURVEY.md §2 parallelism inventory: all absent);
-this package provides the TPU-native equivalents over a jax.sharding.Mesh
-with XLA collectives on ICI — no hand-written comm backend (the reference had
-none either; NCCL would be the CUDA-world analog).
+this package provides them over a jax.sharding.Mesh with XLA collectives,
+which XLA lowers to NCCL — no hand-written comm backend (the reference had
+none either).
 """

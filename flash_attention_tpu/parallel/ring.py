@@ -1,9 +1,10 @@
-"""Ring attention: sequence-parallel attention with KV rotation over ICI.
+"""Ring attention: sequence-parallel attention with KV rotation between devices.
 
 The beyond-chip generalization of the reference's intra-kernel blockwise KV
 streaming (the hot loop at flash_attention.cu:417-453): instead of streaming
-KV tiles HBM→smem within one GPU, KV *shards* rotate chip→chip around the
-mesh's context axis via ``jax.lax.ppermute`` (point-to-point on the ICI ring),
+KV tiles HBM→smem within one GPU, KV *shards* rotate device→device around
+the mesh's context axis via ``jax.lax.ppermute`` (point-to-point, which XLA
+hands to NCCL over NVLink),
 and the per-step partial results combine with the same (m, l, O) merge math as
 the reference's split-K merge kernel (flash_attention.cu:575-597) — here the
 base-2 LSE form in ops/merge.py.
@@ -230,16 +231,15 @@ def _pair_bwd(q_c, k_c, v_c, o_c, lse_c, do_c, *, causal, sm_scale,
     exact partial sums of the full-attention gradients.
     """
     from flash_attention_tpu.ops.attention_bwd import flash_attention_bwd
+    from flash_attention_tpu.ops.common import resolve_interpret
 
-    interpret = jax.default_backend() != "tpu"
     bs = bwd_block_sizes or select_bwd_block_sizes(
-        min(q_c.shape[2], k_c.shape[2]), causal=causal,
-        group=q_c.shape[1] // k_c.shape[1],
-        cross=q_c.shape[2] != k_c.shape[2],
+        q_c.shape[2], kv_seq=k_c.shape[2], head_dim=q_c.shape[3]
     )
     return flash_attention_bwd(
         q_c, k_c, v_c, o_c, lse_c, do_c,
-        causal=causal, sm_scale=sm_scale, block_sizes=bs, interpret=interpret,
+        causal=causal, sm_scale=sm_scale, block_sizes=bs,
+        interpret=resolve_interpret(None),
     )
 
 

@@ -1,9 +1,9 @@
 """shard_map wrappers: head-/batch-parallel attention and cross-chip merges.
 
-TPU-native replacements for the parallelism the reference lacks (SURVEY.md §2
+Replacements for the parallelism the reference lacks (SURVEY.md §2
 inventory): data parallelism = batch axis sharding, tensor parallelism =
 attention-head sharding (zero communication during attention — each chip runs
-the same Pallas kernel on its head shard), and context parallelism = KV-shard
+the same kernel on its head shard), and context parallelism = KV-shard
 partial attention combined with the split-K merge math (flash_attention.cu:
 584-592) expressed as pmax/psum collectives over the mesh.
 """

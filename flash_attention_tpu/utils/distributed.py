@@ -1,8 +1,8 @@
 """Multi-host failure policy: init retries, fail-fast, and step watchdogs.
 
 SURVEY.md §5 ("failure detection / recovery") promises the framework-level
-policy the reference (a single-process benchmark) never needed: on a TPU pod
-slice, every host must join the same coordination barrier, and a host that
+policy the reference (a single-process benchmark) never needed: on a
+multi-host GPU cluster, every host must join the same coordination barrier, and a host that
 silently dies mid-step leaves every OTHER host blocked inside a collective
 with no error. The policy here is the standard production recipe:
 
@@ -56,7 +56,7 @@ def initialize_distributed(
     Args:
       coordinator_address, num_processes, process_id: forwarded to
         ``jax.distributed.initialize`` (all None = single-host autodetect,
-        e.g. under a TPU pod runtime that sets the environment).
+        e.g. under a cluster launcher that sets the environment).
       expected_local_devices: if set, verify ``jax.local_device_count()``
         after init and raise DistributedInitError on mismatch (a host that
         came up with dead chips must die NOW, not at the first collective).
@@ -179,7 +179,7 @@ class StepWatchdog:
         self._stop = threading.Event()
         self.fired = False  # observable by tests (with a mock exit)
         self._thread = threading.Thread(
-            target=self._run, name="fa-tpu-step-watchdog", daemon=True
+            target=self._run, name="fa-step-watchdog", daemon=True
         )
         self._thread.start()
 

@@ -1,16 +1,15 @@
 """Tracing / profiling helpers — the SURVEY §5 tracing subsystem.
 
 The reference's observability is cudaEvent timing plus a regs/occupancy
-introspection block (flash_attention.cu:712-755, 949-956). The TPU-native
+introspection block (flash_attention.cu:712-755, 949-956). The JAX
 equivalents here:
 
   * :func:`trace` — capture a ``jax.profiler`` device trace around a code
     block (open the output dir with TensorBoard or xprof to see per-kernel
-    device timelines, HBM traffic, and MXU utilization).
+    device timelines).
   * :func:`profile_op` — one-call summary: runs a jitted fn under the
     profiler with proper warmup and reports wall time alongside the
-    compiled-executable cost/memory analysis (tools/introspect.py gives the
-    same per-dispatch-config view as a CLI).
+    compiled-executable cost/memory analysis.
 """
 
 from __future__ import annotations

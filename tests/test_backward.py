@@ -1,4 +1,4 @@
-"""Gradient tests: fused Pallas backward vs jax.grad of the fp32 oracle.
+"""Gradient tests: Triton dq / dkv backward vs jax.grad of the fp32 oracle.
 
 The reference has no backward kernel (SURVEY.md §2), so there is no CUDA
 contract to mirror; the bar here is agreement with autodiff through the fp32
@@ -41,7 +41,7 @@ CASES = [
 @pytest.mark.parametrize("batch,hq,hkv,q_len,kv_len,causal", CASES)
 def test_grads_match_oracle(batch, hq, hkv, q_len, kv_len, causal):
     q, k, v = make_qkv(3, batch, hq, q_len, 128, num_kv_heads=hkv, kv_seq=kv_len)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=64, block_kv=64)
 
     got = grads(
         lambda q, k, v: flash_attention(
@@ -109,15 +109,15 @@ def test_value_and_grad_consistent_with_fwd_only():
 
 
 def test_bwd_diag_subtile():
-    """Multi-block causal diag sub-tiling in both bwd kernels (block_q ==
-    block_kv < seq with block_sub): diagonal blocks run live-prefix (dq) /
-    live-suffix (dkv) sub-MMAs; interior blocks are mask-free."""
+    """Multi-tile causal in both bwd kernels: the dq walk over KV tiles
+    and the dkv walk over Q tiles each split into masked diagonal steps and
+    a mask-free interior."""
     cases = [
         # (batch, hq, hkv, seq, bs)
-        (1, 2, 2, 512, BlockSizes(256, 256, 1, 128)),
-        (1, 2, 2, 768, BlockSizes(256, 256, 1, 128)),
-        (2, 4, 1, 512, BlockSizes(256, 256, 1, 128)),  # GQA group walk
-        (1, 2, 2, 1024, BlockSizes(512, 512, 1, 256)),
+        (1, 2, 2, 512, BlockSizes(64, 64)),
+        (1, 2, 2, 768, BlockSizes(128, 64)),
+        (2, 4, 1, 512, BlockSizes(64, 128)),  # GQA group walk
+        (1, 2, 2, 1024, BlockSizes(128, 128)),
     ]
     for batch, hq, hkv, seq, bs in cases:
         q, k, v = make_qkv(23, batch, hq, seq, 128, num_kv_heads=hkv)
@@ -136,7 +136,7 @@ def test_bwd_diag_subtile():
 
 def test_bwd_diag_subtile_softcap():
     q, k, v = make_qkv(24, 1, 2, 512, 128)
-    bs = BlockSizes(256, 256, 1, 128)
+    bs = BlockSizes(128, 64)
     got = grads(
         lambda q, k, v: flash_attention(
             q, k, v, causal=True, block_sizes=bs, bwd_block_sizes=bs,
@@ -154,41 +154,36 @@ def test_bwd_diag_subtile_softcap():
         assert_close(g, w, msg=f"softcap d{name}")
 
 
-FUSED_CASES = [
-    # (batch, hq, q_len, kv_len, causal, bs) — MHA only (the fused kernel's
-    # whole-KV dk/dv accumulators don't group-sum; GQA stays two-pass).
-    (1, 2, 256, 256, False, BlockSizes(128, 128, bwd_fused=True)),
-    (1, 2, 512, 512, True, BlockSizes(128, 256, bwd_fused=True)),
-    (2, 2, 384, 384, True, BlockSizes(128, 128, bwd_fused=True)),
-    (1, 2, 192, 192, True, BlockSizes(128, 128, bwd_fused=True)),  # ragged
-    (1, 2, 128, 384, True, BlockSizes(128, 128, bwd_fused=True)),  # diag off
-    (1, 2, 128, 320, False, BlockSizes(128, 128, bwd_fused=True)),  # ragged kv
-    (1, 4, 512, 512, True, BlockSizes(128, 128, 2, bwd_fused=True)),  # hb=2
-    # Single-superblock causal sub-tiling inside the fused kernel.
-    (1, 2, 512, 512, True, BlockSizes(512, 512, 1, 128, bwd_fused=True)),
-    # Multi-block causal diag sub-tiling inside the fused kernel.
-    (1, 2, 1024, 1024, True, BlockSizes(256, 256, 1, 128, bwd_fused=True)),
-    # KV-CHUNKED fused: one fused call per KV chunk (fp32 dq partial sum,
-    # per-chunk dk/dv), causal and not, with a padded tail chunk.
-    (1, 2, 512, 512, True,
-     BlockSizes(128, 128, 1, 0, bwd_fused=True, fused_kv_chunk=256)),
-    (1, 2, 768, 768, True,
-     BlockSizes(256, 256, 1, 128, bwd_fused=True, fused_kv_chunk=256)),
-    (1, 2, 512, 512, False,
-     BlockSizes(128, 128, 2, 0, bwd_fused=True, fused_kv_chunk=256)),
-    (1, 2, 448, 448, False,  # ragged: pad lands in the last chunk
-     BlockSizes(128, 128, 1, 0, bwd_fused=True, fused_kv_chunk=256)),
+TILE_CASES = [
+    # (batch, hq, q_len, kv_len, causal, bs) — the backward tiles: the dq
+    # kernel holds block_q rows and walks block_kv steps, the dkv kernel
+    # holds block_kv rows and walks block_q steps.
+    (1, 2, 256, 256, False, BlockSizes(64, 64)),
+    (1, 2, 512, 512, True, BlockSizes(64, 128)),
+    (2, 2, 384, 384, True, BlockSizes(128, 64)),
+    (1, 2, 192, 192, True, BlockSizes(64, 64)),  # ragged
+    (1, 2, 128, 384, True, BlockSizes(32, 64)),  # diag offset
+    (1, 2, 128, 320, False, BlockSizes(64, 64)),  # ragged kv
+    (1, 4, 512, 512, True, BlockSizes(64, 32, 4, 2)),
+    # One Q tile covering the whole sequence.
+    (1, 2, 512, 512, True, BlockSizes(512, 64, 8, 2)),
+    # Many small diagonal steps.
+    (1, 2, 1024, 1024, True, BlockSizes(128, 32)),
+    (1, 2, 512, 512, True, BlockSizes(16, 64, 1, 1)),
+    (1, 2, 768, 768, True, BlockSizes(256, 128, 8, 2)),
+    (1, 2, 512, 512, False, BlockSizes(128, 16, 2, 1)),
+    (1, 2, 448, 448, False, BlockSizes(128, 256)),  # ragged, padded tail
 ]
 
 
-@pytest.mark.parametrize("batch,hq,q_len,kv_len,causal,bs", FUSED_CASES)
-def test_bwd_fused_one_pass(batch, hq, q_len, kv_len, causal, bs):
-    """The fused one-pass backward (dq+dk+dv from one score recompute,
-    whole-KV VMEM accumulators) matches autodiff through the fp32 oracle."""
+@pytest.mark.parametrize("batch,hq,q_len,kv_len,causal,bs", TILE_CASES)
+def test_bwd_tile_choices(batch, hq, q_len, kv_len, causal, bs):
+    """Every backward tile choice matches autodiff through the fp32
+    oracle."""
     q, k, v = make_qkv(31, batch, hq, q_len, 128, kv_seq=kv_len)
     got = grads(
         lambda q, k, v: flash_attention(
-            q, k, v, causal=causal, block_sizes=BlockSizes(128, 128),
+            q, k, v, causal=causal, block_sizes=BlockSizes(128, 64),
             bwd_block_sizes=bs,
         ),
         q, k, v,
@@ -200,12 +195,12 @@ def test_bwd_fused_one_pass(batch, hq, q_len, kv_len, causal, bs):
         q, k, v,
     )
     for g, w, name in zip(got, want, "qkv"):
-        assert_close(g, w, msg=f"fused d{name}")
+        assert_close(g, w, msg=f"tiles {bs} d{name}")
 
 
-def test_bwd_fused_window_softcap():
+def test_bwd_window_softcap():
     q, k, v = make_qkv(32, 1, 2, 512, 128)
-    bs = BlockSizes(128, 128, bwd_fused=True)
+    bs = BlockSizes(64, 32)
     for kwargs in (
         {"sliding_window": 200},
         {"logit_softcap": 20.0},
@@ -213,7 +208,7 @@ def test_bwd_fused_window_softcap():
     ):
         got = grads(
             lambda q, k, v: flash_attention(
-                q, k, v, causal=True, block_sizes=BlockSizes(128, 128),
+                q, k, v, causal=True, block_sizes=BlockSizes(128, 64),
                 bwd_block_sizes=bs, **kwargs,
             ),
             q, k, v,
@@ -225,4 +220,4 @@ def test_bwd_fused_window_softcap():
             q, k, v,
         )
         for g, w, name in zip(got, want, "qkv"):
-            assert_close(g, w, msg=f"fused {kwargs} d{name}")
+            assert_close(g, w, msg=f"{kwargs} d{name}")

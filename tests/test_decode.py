@@ -162,7 +162,7 @@ def test_should_split_decode_gate():
     # Fires: small batch x kv_heads, long context.
     assert should_split_decode(1, 8, 16384, 4096) > 1
     assert should_split_decode(2, 8, 16384, 4096) > 1
-    # Silent: big batch or short context (split regresses there; v5e sweep).
+    # Silent: big batch or short context.
     assert should_split_decode(32, 8, 8192, 4096) == 0
     assert should_split_decode(1, 8, 4096, 4096) == 0
     assert should_split_decode(4, 8, 8192, 4096) == 0  # b*kvh = 32 > 16
@@ -201,40 +201,33 @@ def test_decode_quantized_window_softcap(mode):
         assert_close(got, want, tolerance=0.02, msg=f"packed {mode} {kwargs}")
 
 
-def test_packed_widen_row_order():
-    """upcast_kv_payload_packed under interpret: half h row w = position
-    2w + h (the "evenodd" order pinned by packed_split_order). The Mosaic
-    "pair" order is pinned by the on-TPU equivalence of the fp8 decode path
-    against the dense kernel (driven by tools/ + the bench smoke)."""
-    import jax
-    from jax.experimental import pallas as pl
-
-    from flash_attention_tpu.ops.common import upcast_kv_payload_packed
+@pytest.mark.parametrize("mode", ["fp8_e4m3", "fp8_e5m2"])
+def test_native_fp8_dequant_matches_quant_dequantize(mode):
+    """The paged decode kernel widens fp8 payloads with a plain in-kernel
+    ``astype`` (Hopper converts fp8 natively). Over a one-token cache the
+    output IS the dequantized V row, so it must equal ops/quant.dequantize
+    of the same payload and scale to bf16 rounding."""
+    from flash_attention_tpu.ops.paged import (
+        init_paged_cache, paged_decode_attention, paged_write_tokens,
+    )
 
     rng = np.random.default_rng(7)
-    x = rng.uniform(-2.0, 2.0, (16, 128)).astype(np.float32)
-    for dt in (jnp.float8_e4m3fn, jnp.float8_e5m2):
-        xq = jnp.asarray(x).astype(dt)
-
-        def kern(x_ref, o0_ref, o1_ref):
-            b0, b1, _ = upcast_kv_payload_packed(x_ref[...])
-            o0_ref[...] = b0
-            o1_ref[...] = b1
-
-        b0, b1, = pl.pallas_call(
-            kern,
-            out_shape=[jax.ShapeDtypeStruct((8, 128), jnp.bfloat16)] * 2,
-            interpret=True,
-        )(xq)
-        factor = 2.0 ** 120 if dt == jnp.float8_e4m3fn else 2.0 ** 112
-        true = np.asarray(xq.astype(jnp.float32))
-        pos0 = np.arange(8) * 2  # interpret order: evenodd
-        np.testing.assert_allclose(
-            np.asarray(b0.astype(jnp.float32)) * factor, true[pos0], rtol=1e-2
-        )
-        np.testing.assert_allclose(
-            np.asarray(b1.astype(jnp.float32)) * factor, true[pos0 + 1], rtol=1e-2
-        )
+    k = jnp.asarray(rng.uniform(-2.0, 2.0, (2, 2, 128)), jnp.bfloat16)
+    v = jnp.asarray(rng.uniform(-2.0, 2.0, (2, 2, 128)), jnp.bfloat16)
+    cache = init_paged_cache(
+        num_pages=4, num_slots=2, pages_per_slot=2, kv_heads=2,
+        page_size=128, kv_quant=mode,
+    )
+    cache = cache._replace(page_table=jnp.asarray([[3, 1], [0, 2]], jnp.int32))
+    cache = paged_write_tokens(cache, k, v, jnp.arange(2))
+    q = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 4, 128)), jnp.bfloat16)
+    got = paged_decode_attention(q, cache)
+    _, vq = quantize_kv(k[:, :, None, :], v[:, :, None, :], mode)
+    want = dequantize(vq, jnp.float32)[:, :, 0, :]  # [slots, kv_heads, D]
+    want = jnp.repeat(want, 2, axis=1)  # GQA group of 2
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want), rtol=1e-2, atol=1e-2
+    )
 
 
 def test_rejects_misaligned_block_kv():

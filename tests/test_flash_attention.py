@@ -4,7 +4,7 @@ Mirrors + extends the reference's four correctness cases (C9, SURVEY.md §4;
 flash_attention.cu:757-884) and fixes its documented coverage gaps: causal
 long-seq, non-block-multiple seqs, GQA, residual (LSE) output, fp16 dtype.
 Shapes are scaled down where the reference used seq=1024/2048 at heads=32 —
-interpreter-mode runtime, same code paths (block boundaries, masking tiers).
+interpreter-mode runtime, same code paths (tile boundaries, masked edges).
 """
 
 import jax.numpy as jnp
@@ -19,7 +19,7 @@ from flash_attention_tpu.ops.reference import (
 from flash_attention_tpu.ops.tuning import BlockSizes
 from flash_attention_tpu.utils.testing import assert_close, make_qkv
 
-BS = BlockSizes(block_q=128, block_kv=128)
+BS = BlockSizes(block_q=128, block_kv=64)
 
 
 # The reference's four cases (ragged short causal / causal / non-causal /
@@ -54,8 +54,8 @@ def test_ragged_seq_lengths(seq, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_block_size_sweep(causal):
-    """Numerics must be invariant to block-size choice (the dispatcher's whole
-    config space, mirroring the reference's 4 tiers)."""
+    """Numerics must be invariant to the tile choice (Q tiles larger and
+    smaller than the KV step, as the reference's 4 tiers were)."""
     q, k, v = make_qkv(9, 1, 1, 512, 128)
     want = reference_attention(q, k, v, causal=causal)
     for bq, bkv in [(128, 128), (256, 128), (128, 256), (256, 512), (512, 256)]:
@@ -114,25 +114,22 @@ def test_head_dim_64_padding():
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_64_unpadded(causal):
-    """d64_unpadded keeps the 64-lane minor dim end to end (no HBM zero-pad);
-    numerics must match the padded path exactly."""
-    import dataclasses
-
+    """head_dim=64 stays 64 wide through the kernel (a power of two needs no
+    padding); a KV step larger than the Q tile covers the other shape."""
     q, k, v = make_qkv(13, 2, 4, 384, 64)
-    bs = dataclasses.replace(BS, d64_unpadded=True)
+    bs = BlockSizes(block_q=64, block_kv=128)
     got = flash_attention(q, k, v, causal=causal, block_sizes=bs)
     want = reference_attention(q, k, v, causal=causal)
     assert_close(got, want, msg=f"head_dim=64 unpadded causal={causal}")
 
 
 def test_head_dim_64_unpadded_subtile_and_hb():
-    import dataclasses
-
-    q, k, v = make_qkv(17, 1, 8, 512, 64)
-    bs = dataclasses.replace(BS, block_h=4, block_sub=128, d64_unpadded=True)
+    """head_dim=64 with small tiles and a GQA group walking one KV head."""
+    q, k, v = make_qkv(17, 1, 8, 512, 64, num_kv_heads=2)
+    bs = BlockSizes(block_q=64, block_kv=32, num_warps=4, num_stages=2)
     got = flash_attention(q, k, v, causal=True, block_sizes=bs)
     want = reference_attention(q, k, v, causal=True)
-    assert_close(got, want, msg="head_dim=64 unpadded subtile+hb")
+    assert_close(got, want, msg="head_dim=64 small tiles + GQA")
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -163,33 +160,34 @@ def test_batched():
 
 
 def test_gqa_head_batching():
-    """block_h spanning whole KV groups (in-kernel KV expansion) matches the
-    oracle across batch elements, including the single-step path."""
+    """GQA through the KV index map (each Q head reads its group's KV head
+    in place) matches the oracle across batch elements and tile choices,
+    including a single KV step."""
 
-    for (b, hq, hkv, hb, seq, causal) in [
-        (2, 8, 2, 4, 256, True),   # hb == group
-        (2, 8, 2, 8, 256, False),  # hb == 2 groups
-        (1, 8, 4, 4, 384, True),   # group 2
-        (2, 8, 2, 4, 128, False),  # single-step path with kv expansion
+    for (b, hq, hkv, bq, seq, causal) in [
+        (2, 8, 2, 64, 256, True),
+        (2, 8, 2, 128, 256, False),
+        (1, 8, 4, 64, 384, True),  # group 2
+        (2, 8, 2, 128, 128, False),  # one KV step
     ]:
         q, k, v = make_qkv(0, b, hq, seq, 128, num_kv_heads=hkv)
-        bs = BlockSizes(block_q=128, block_kv=128, block_h=hb)
+        bs = BlockSizes(block_q=bq, block_kv=128)
         got = flash_attention(q, k, v, causal=causal, block_sizes=bs)
         want = reference_attention(q, k, v, causal=causal)
-        assert_close(got, want, msg=f"b={b} hq={hq} hkv={hkv} hb={hb}")
+        assert_close(got, want, msg=f"b={b} hq={hq} hkv={hkv} bq={bq}")
 
 
 def test_causal_subtile_configs():
-    """Causal single-superblock sub-tiling (block_sub): per-row-block
-    live-prefix MMAs must match the oracle across MHA/GQA, padding, and
+    """Causal tiles where the diagonal crosses one Q tile (masked edge of
+    several KV steps) must match the oracle across MHA/GQA, padding, and
     kv_len > q_len diagonal offsets."""
     cases = [
         # (batch, q_heads, kv_heads, q_len, kv_len, bs)
-        (1, 4, 4, 512, 512, BlockSizes(512, 512, 4, 128)),
-        (1, 4, 4, 640, 640, BlockSizes(640, 640, 2, 128)),  # ragged pad
-        (2, 8, 2, 512, 512, BlockSizes(512, 512, 8, 128)),  # GQA in-kernel
-        (1, 2, 2, 256, 512, BlockSizes(256, 512, 2, 128)),  # diag offset
-        (1, 2, 2, 512, 512, BlockSizes(512, 512, 1, 256)),  # wider sub
+        (1, 4, 4, 512, 512, BlockSizes(256, 64)),
+        (1, 4, 4, 640, 640, BlockSizes(256, 128)),  # ragged pad
+        (2, 8, 2, 512, 512, BlockSizes(128, 32, 4, 2)),  # GQA index map
+        (1, 2, 2, 256, 512, BlockSizes(256, 64)),  # diag offset
+        (1, 2, 2, 512, 512, BlockSizes(512, 128, 8, 2)),  # one Q tile
     ]
     for batch, hq, hkv, qs, ks, bs in cases:
         q, k, v = make_qkv(11, batch, hq, qs, 128, num_kv_heads=hkv, kv_seq=ks)
@@ -199,12 +197,12 @@ def test_causal_subtile_configs():
 
 
 def test_causal_subtile_lse_matches_tiled():
-    """The subtile path's LSE residual must agree with the multi-block
+    """One whole-sequence Q tile's LSE residual must agree with the tiled
     online-softmax path (the split/ring merge contract)."""
     q, k, v = make_qkv(12, 1, 2, 512, 128)
     out_a, lse_a = flash_attention(
         q, k, v, causal=True, save_residuals=True,
-        block_sizes=BlockSizes(512, 512, 2, 128),
+        block_sizes=BlockSizes(512, 256, 8, 2),
     )
     out_b, lse_b = flash_attention(
         q, k, v, causal=True, save_residuals=True, block_sizes=BS
@@ -219,27 +217,26 @@ def test_causal_subtile_softcap():
     q, k, v = make_qkv(13, 1, 2, 512, 128)
     got = flash_attention(
         q, k, v, causal=True, logit_softcap=30.0,
-        block_sizes=BlockSizes(512, 512, 2, 128),
+        block_sizes=BlockSizes(512, 256, 8, 2),
     )
     want = reference_attention(q, k, v, causal=True, logit_softcap=30.0)
     assert_close(got, want)
 
 
 def test_causal_diag_subtile_configs():
-    """Multi-block causal diag sub-tiling (block_q == block_kv < seq with
-    block_sub): diagonal steps run live-prefix sub-MMAs merged into the
-    online state; interior steps are mask-free. Must match the oracle across
-    MHA/GQA, head batching, sub widths, and aligned chunked-prefill offsets."""
+    """Multi-tile causal: each Q tile's KV walk splits into a mask-free
+    interior and masked diagonal steps. Must match the oracle across
+    MHA/GQA, tile shapes, and aligned chunked-prefill offsets."""
     cases = [
         # (batch, q_heads, kv_heads, q_len, kv_len, bs)
-        (1, 2, 2, 512, 512, BlockSizes(128, 128, 1, 128)),  # sub==bq: inert
-        (1, 2, 2, 512, 512, BlockSizes(256, 256, 1, 128)),
-        (1, 2, 2, 768, 768, BlockSizes(256, 256, 2, 128)),
-        (2, 4, 4, 512, 512, BlockSizes(256, 256, 4, 128)),
-        (1, 8, 2, 512, 512, BlockSizes(256, 256, 4, 128)),  # GQA spans groups
-        (1, 2, 2, 1024, 1024, BlockSizes(512, 512, 1, 256)),
+        (1, 2, 2, 512, 512, BlockSizes(128, 128)),  # square tiles
+        (1, 2, 2, 512, 512, BlockSizes(256, 256)),
+        (1, 2, 2, 768, 768, BlockSizes(256, 64)),
+        (2, 4, 4, 512, 512, BlockSizes(64, 256)),  # KV step > Q tile
+        (1, 8, 2, 512, 512, BlockSizes(128, 32)),  # GQA
+        (1, 2, 2, 1024, 1024, BlockSizes(256, 128)),
         # aligned chunked-prefill: q_len < kv_len, offset % block_kv == 0
-        (1, 2, 2, 256, 512, BlockSizes(256, 256, 1, 128)),
+        (1, 2, 2, 256, 512, BlockSizes(128, 128)),
     ]
     for batch, hq, hkv, qs, ks, bs in cases:
         q, k, v = make_qkv(17, batch, hq, qs, 128, num_kv_heads=hkv, kv_seq=ks)
@@ -249,12 +246,12 @@ def test_causal_diag_subtile_configs():
 
 
 def test_causal_diag_subtile_lse_and_grad():
-    """Diag-subtile LSE must match the plain tri grid's, and the backward
-    (which consumes the residuals forward) must stay correct."""
+    """LSE must not depend on the tiles, and the backward (which consumes
+    the residuals forward) must stay correct."""
     import jax
 
     q, k, v = make_qkv(18, 1, 2, 768, 128)
-    bs = BlockSizes(256, 256, 2, 128)
+    bs = BlockSizes(256, 128)
     out_a, lse_a = flash_attention(
         q, k, v, causal=True, save_residuals=True, block_sizes=bs
     )
@@ -289,15 +286,15 @@ def test_causal_diag_subtile_softcap():
     q, k, v = make_qkv(19, 1, 2, 512, 128)
     got = flash_attention(
         q, k, v, causal=True, logit_softcap=30.0,
-        block_sizes=BlockSizes(256, 256, 1, 128),
+        block_sizes=BlockSizes(256, 128),
     )
     want = reference_attention(q, k, v, causal=True, logit_softcap=30.0)
     assert_close(got, want)
 
 
 def test_rejects_batch_or_head_dim_mismatch():
-    """A q/kv batch mismatch must raise: Mosaic CLAMPS out-of-bounds block
-    indices, so the kernel would silently attend another row's K/V."""
+    """A q/kv batch mismatch must raise: the KV index map would otherwise
+    read another batch element's K/V rows."""
     import pytest
 
     q, k, v = make_qkv(70, 2, 2, 128, 128)
@@ -307,43 +304,12 @@ def test_rejects_batch_or_head_dim_mismatch():
         flash_attention(q[:, :, :, :64], k, v, causal=True)
 
 
-def test_lse_narrow_matches_default():
-    """lse_narrow emits the LSE residual 1 lane wide instead of
-    LANES-broadcast; values and downstream gradients must be identical."""
-    import dataclasses
-
-    q, k, v = make_qkv(31, 1, 4, 512, 128)
-    base = BS
-    narrow = dataclasses.replace(BS, lse_narrow=True)
-    for causal in (False, True):
-        o0, l0 = flash_attention(
-            q, k, v, causal=causal, block_sizes=base, save_residuals=True
-        )
-        o1, l1 = flash_attention(
-            q, k, v, causal=causal, block_sizes=narrow, save_residuals=True
-        )
-        assert_close(o0, o1, tolerance=1e-6)
-        np.testing.assert_allclose(np.asarray(l0), np.asarray(l1), atol=1e-6)
-
-    # Gradients through the narrow residuals path (res_block_sizes is the
-    # under-grad forward config).
-    import jax
-
-    w = jax.random.normal(jax.random.key(6), q.shape)
-
-    def loss(bs):
-        def f(q, k, v):
-            return jnp.sum(
-                flash_attention(q, k, v, causal=True, block_sizes=bs).astype(
-                    jnp.float32
-                )
-                * w
-            )
-        return jax.grad(f, argnums=(0, 1, 2))(q, k, v)
-
-    g0 = loss(base)
-    g1 = loss(narrow)
-    for a, b in zip(g0, g1):
-        np.testing.assert_allclose(
-            np.asarray(a, np.float32), np.asarray(b, np.float32), atol=1e-6
-        )
+@pytest.mark.parametrize(
+    "bad", [dict(block_q=96), dict(block_kv=8), dict(num_warps=3),
+            dict(num_stages=0)],
+)
+def test_block_sizes_reject_non_triton_tiles(bad):
+    """Triton tiles are powers of two >= 16 with a power-of-two warp count;
+    anything else is refused at construction, not at GPU compile time."""
+    with pytest.raises(ValueError):
+        BlockSizes(**bad)

@@ -12,6 +12,7 @@ from flash_attention_tpu.ops.paged import (
     paged_decode_attention,
     paged_write_prefill,
     paged_write_tokens,
+    paged_write_tokens_multi,
 )
 from flash_attention_tpu.ops.reference import reference_attention
 from flash_attention_tpu.serving.allocator import PageAllocator
@@ -67,10 +68,14 @@ def test_paged_decode_matches_oracle(group):
 
 
 @pytest.mark.parametrize("mode", ["none", "int8"])
-def test_paged_decode_per_head_fallback_matches(mode):
-    """The per-head kernel (VMEM fallback for working sets the head-batched
-    whole-page fetch can't hold) must agree with the hb path and the oracle.
-    All test shapes pass the size gate, so the fallback needs forcing."""
+def test_paged_decode_split_kv_matches(mode):
+    """The decode kernel splits each slot's pages across programs and
+    LSE-merges the splits: output and residual LSE must match the oracle
+    (plain cache) and the dense decode on the same quantized cache."""
+    from flash_attention_tpu.ops.decode import decode_attention
+    from flash_attention_tpu.ops.quant import quantize_kv
+    from flash_attention_tpu.ops.reference import reference_attention_with_lse
+
     num_slots, kv_heads, pages_per_slot = 2, 2, 4
     lengths = np.array([512, 200], np.int32)
     if mode == "none":
@@ -79,26 +84,24 @@ def test_paged_decode_per_head_fallback_matches(mode):
         )
         q, _, _ = make_qkv(9, num_slots, kv_heads * 2, 1, 128)
         q = q[:, :, 0, :]
-        got_ph, lse_ph = paged_decode_attention(
-            q, cache, save_residuals=True, _force_per_head=True
-        )
-        got_hb, lse_hb = paged_decode_attention(q, cache, save_residuals=True)
-        want = reference_attention(
+        got, lse = paged_decode_attention(q, cache, save_residuals=True)
+        want, want_lse = reference_attention_with_lse(
             q[:, :, None, :], k, v, kv_length=jnp.asarray(lengths)
-        )[:, :, 0, :]
-        assert_close(got_ph, want)
+        )
+        assert_close(got, want[:, :, 0, :])
         np.testing.assert_allclose(
-            np.asarray(lse_ph), np.asarray(lse_hb), atol=2e-2
+            np.asarray(lse), np.asarray(want_lse[:, :, 0]), atol=2e-2
         )
     else:
-        from flash_attention_tpu.ops.quant import quantize_kv
-
         _, k, v = make_qkv(13, num_slots, kv_heads, 1, 128,
                            kv_seq=pages_per_slot * PAGE)
         cache = init_paged_cache(
             num_pages=16, num_slots=num_slots, pages_per_slot=pages_per_slot,
             kv_heads=kv_heads, page_size=PAGE, kv_quant=mode,
         )
+        cache = cache._replace(page_table=jnp.asarray(
+            np.arange(1, 1 + num_slots * pages_per_slot).reshape(
+                num_slots, pages_per_slot), jnp.int32))
         for s in range(num_slots):
             pref = ((int(lengths[s]) + PAGE - 1) // PAGE) * PAGE
             cache = paged_write_prefill(
@@ -106,9 +109,9 @@ def test_paged_decode_per_head_fallback_matches(mode):
             )
         q, _, _ = make_qkv(14, num_slots, kv_heads * 2, 1, 128)
         q = q[:, :, 0, :]
-        got_ph = paged_decode_attention(q, cache, _force_per_head=True)
-        got_hb = paged_decode_attention(q, cache)
-        assert_close(got_ph, got_hb)
+        kq, vq = quantize_kv(k, v, mode)
+        want = decode_attention(q, kq, vq, jnp.asarray(lengths))
+        assert_close(paged_decode_attention(q, cache), want)
 
 
 def test_paged_decode_residuals_match_dense():
@@ -608,3 +611,57 @@ def test_deferred_decode_matches_write_first():
             np.asarray(ca.k_pages, np.float32),
             np.asarray(cb.k_pages, np.float32), atol=0.05,
         )
+
+
+def _full_buffer_moves(compiled_text, n_elements):
+    """copy / transpose instructions that produce a whole cache buffer."""
+    import math
+    import re
+
+    moves = []
+    for line in compiled_text.splitlines():
+        m = re.search(r"= \w+\[([\d,]+)\]\S* (copy|transpose)\(", line)
+        if m and math.prod(int(x) for x in m.group(1).split(",")) == n_elements:
+            moves.append(line.strip())
+    return moves
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("mode", ["none", "int8"])
+def test_token_writes_scatter_in_place(paged, mode):
+    """A decode step's one-token writes update the donated cache in place:
+    the compiled program moves no whole cache buffer (indexing page or batch
+    and row with a slice between them made XLA transpose every pool there
+    and back, which dominated the write on the GPU)."""
+    from flash_attention_tpu.models.attention import (
+        AttentionConfig,
+        init_kv_cache,
+        write_cache,
+    )
+
+    slots, kv_heads, d = 4, 2, 128
+    k1 = make_qkv(70, slots, kv_heads, 1, d)[1]
+    if paged:
+        cache = init_paged_cache(
+            num_pages=17, num_slots=slots, pages_per_slot=4,
+            kv_heads=kv_heads, page_size=128, kv_quant=mode,
+        )
+        cache = cache._replace(
+            page_table=(1 + jnp.arange(16, dtype=jnp.int32)).reshape(slots, 4),
+            lengths=jnp.array([0, 130, 300, 511], jnp.int32),
+        )
+        layers = [cache, jax.tree_util.tree_map(jnp.copy, cache)]
+        step = jax.jit(lambda cs: paged_write_tokens_multi(
+            cs, [k1[:, :, 0]] * 2, [k1[:, :, 0]] * 2, jnp.arange(slots)),
+            donate_argnums=0)
+        n = cache.k_pages.size
+    else:
+        cfg = AttentionConfig(model_dim=256, num_q_heads=4,
+                              num_kv_heads=kv_heads, head_dim=d, kv_quant=mode)
+        layers = init_kv_cache(cfg, slots, 512)
+        step = jax.jit(lambda c: write_cache(
+            cfg, c, k1, k1, jnp.array([0, 130, 300, 511], jnp.int32)),
+            donate_argnums=0)
+        n = layers.k.size
+    text = step.lower(layers).compile().as_text()
+    assert _full_buffer_moves(text, n) == []

@@ -254,13 +254,13 @@ def test_zigzag_training_loop():
 
 
 def test_ring_grad_honors_bwd_block_sizes():
-    """bwd_block_sizes must reach the per-pair fused backward (a caller
-    whose default bwd tier OOMs scoped VMEM relies on this override)."""
+    """bwd_block_sizes must reach the per-pair backward (a caller
+    whose default backward tiles do not fit relies on this override)."""
     mesh = make_mesh(data=1, model=1, context=4)
     q, k, v = make_qkv(62, 1, 2, 512, 128)
     fn = make_ring_attention(
         mesh, causal=True, block_sizes=BS,
-        bwd_block_sizes=BlockSizes(block_q=128, block_kv=128, block_h=2),
+        bwd_block_sizes=BlockSizes(block_q=64, block_kv=32, num_warps=4, num_stages=2),
     )
     w = jax.random.normal(jax.random.key(5), q.shape)
 

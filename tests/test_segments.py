@@ -2,7 +2,7 @@
 
 The reference has no packing support (single-sequence benchmark); this is the
 packed-pretraining contract: positions attend only within their own segment,
-composing with causal masking, GQA, sub-tiled causal configs, soft-caps, and
+composing with causal masking, GQA, tile choices, soft-caps, and
 gradients. A packed batch must reproduce the per-document unpacked results
 exactly (up to the usual 0.1 fused-kernel tolerance).
 """
@@ -33,19 +33,20 @@ def test_segments_match_oracle(causal):
     seg = make_segments(2, 256, [100, 180])
     got = flash_attention(
         q, k, v, causal=causal, segment_ids=seg,
-        block_sizes=BlockSizes(128, 128),
+        block_sizes=BlockSizes(128, 64),
     )
     want = reference_attention(q, k, v, causal=causal, segment_ids=seg)
     assert_close(got, want, msg=f"causal={causal}")
 
 
 def test_segments_subtile_config():
-    """Segment masking inside the causal single-superblock sub-tiled path."""
+    """Segment masking with one whole-sequence Q tile walking small KV
+    steps."""
     q, k, v = make_qkv(32, 1, 4, 512, 128)
     seg = make_segments(1, 512, [200, 400])
     got = flash_attention(
         q, k, v, causal=True, segment_ids=seg,
-        block_sizes=BlockSizes(512, 512, 4, 128),
+        block_sizes=BlockSizes(512, 64, 8, 2),
     )
     want = reference_attention(q, k, v, causal=True, segment_ids=seg)
     assert_close(got, want)
@@ -56,7 +57,7 @@ def test_segments_gqa_and_softcap():
     seg = make_segments(2, 256, [128])
     got = flash_attention(
         q, k, v, causal=True, segment_ids=seg, logit_softcap=30.0,
-        block_sizes=BlockSizes(128, 128),
+        block_sizes=BlockSizes(64, 128),
     )
     want = reference_attention(
         q, k, v, causal=True, segment_ids=seg, logit_softcap=30.0
@@ -100,8 +101,8 @@ def test_segments_gradients():
         return jnp.sum(
             flash_attention(
                 q, k, v, causal=True, segment_ids=seg,
-                block_sizes=BlockSizes(128, 128),
-                bwd_block_sizes=BlockSizes(128, 128),
+                block_sizes=BlockSizes(128, 64),
+                bwd_block_sizes=BlockSizes(64, 32),
             ).astype(jnp.float32)
         )
 
@@ -195,9 +196,10 @@ def test_train_forward_packed_grads_finite():
 
 
 def test_packed_skip_multiblock_fwd_bwd():
-    """Packed block skipping (runtime tri compaction fwd, prefetch-gated bwd
-    grids): multi-block grids with per-batch-row layouts, doc boundaries
-    crossing block boundaries, vs the oracle — values AND gradients."""
+    """Packed tile skipping (per-tile live ranges from the segment ids, in
+    the forward and both backward kernels): per-batch-row layouts, doc
+    boundaries crossing tile boundaries, vs the oracle — values AND
+    gradients."""
     q, k, v = make_qkv(41, 2, 2, 512, 128)
     ids = np.zeros((2, 512), np.int32)
     ids[0, 128:384] = 1
@@ -247,7 +249,7 @@ def test_packed_skip_gqa_ragged():
     ids[0, 400:] = 2
     ids[1, 450:] = 1
     seg = jnp.asarray(ids)
-    bs = BlockSizes(128, 128, block_h=2)
+    bs = BlockSizes(128, 64)
     got = flash_attention(
         q, k, v, causal=True, segment_ids=seg, block_sizes=bs
     )
@@ -269,7 +271,7 @@ def test_packed_skip_chunked_cross_lengths():
             [np.full(300, 6), np.full(184, 7), np.full(156, 8)]
         )[None].astype(np.int32)
     )
-    bs = BlockSizes(128, 128)
+    bs = BlockSizes(256, 64)
     got = flash_attention(
         q, k, v, causal=True, segment_ids=(sq, skv), block_sizes=bs
     )
@@ -321,42 +323,27 @@ def test_packed_skip_noncausal():
 
 
 def test_packed_skip_enumeration_math():
-    """The runtime compaction invariants, checked directly on a hand-built
-    layout: live steps first and iq-major contiguous, dead tail clamped to
-    the last live pair, exactly one first/last flag per live q block, and
-    every truly-dead cross-doc pair excluded."""
+    """The per-tile live ranges, checked directly on a hand-built layout:
+    two documents of two tiles each keep each Q tile on its own document's
+    KV tiles (and vice versa), and pad sentinels never extend a range."""
     from flash_attention_tpu.ops.flash_attention import (
-        _packed_tri_enumeration,
+        pad_segments,
+        segment_block_bounds,
     )
 
-    # Static causal enumeration for 4x4 blocks (iq-major), as _fwd_impl
-    # builds it: flags bit1 = first (ikv == 0), bit2 = last (diagonal).
-    iq_s, ikv_s, fl_s = [], [], []
-    for i in range(4):
-        for j in range(i + 1):
-            iq_s.append(i)
-            ikv_s.append(j)
-            fl_s.append((1 if j == 0 else 0) | (2 if j == i else 0))
-    seg = make_segments(1, 512, [256])[:, None, :]  # 2 docs of 2 blocks
-    iq2, ikv2, flags2 = _packed_tri_enumeration(
-        seg, seg,
-        jnp.asarray(iq_s, jnp.int32), jnp.asarray(ikv_s, jnp.int32),
-        jnp.asarray(fl_s, jnp.int32),
-        num_q_blocks=4, num_kv_blocks=4, block_q=128, block_kv=128,
+    seg = make_segments(1, 480, [256])  # docs [0, 256) and [256, 480)
+    seg_q, seg_kv = pad_segments((seg, seg), 480, 512, 480, 512)
+    q_bounds, kv_bounds = segment_block_bounds(
+        seg_q, seg_kv, 128, 128, 480, 480
     )
-    iq, ikv, flags = np.asarray(iq2)[0], np.asarray(ikv2)[0], np.asarray(flags2)[0]
-    live = (flags & 8) == 0
-    # Static causal T=10; docs {0,1}x{2,3} kill blocks (2,0),(2,1),(3,0),(3,1)
-    # -> 6 live steps.
-    assert list(live) == [True] * 6 + [False] * 4
-    assert list(iq[live]) == [0, 1, 1, 2, 3, 3]
-    assert list(ikv[live]) == [0, 0, 1, 2, 2, 3]
-    # Dead tail clamps to the last live pair.
-    assert all(iq[~live] == 3) and all(ikv[~live] == 3)
-    # One first (bit 1) and one last (bit 2) per live q block, none dead.
-    assert list(flags[live] & 1) == [1, 1, 0, 1, 1, 0]
-    assert list(flags[live] & 2) == [2, 0, 2, 2, 0, 2]
-    assert all((flags[~live] & 3) == 0)
+    assert np.asarray(q_bounds)[0].tolist() == [[0, 2], [0, 2], [2, 4], [2, 4]]
+    assert np.asarray(kv_bounds)[0].tolist() == [[0, 2], [0, 2], [2, 4], [2, 4]]
+    # A Q tile whose ids match no KV tile gets an empty range.
+    none = segment_block_bounds(
+        jnp.full((1, 128), 5, jnp.int32), jnp.zeros((1, 256), jnp.int32),
+        128, 128, 128, 256,
+    )[0]
+    assert np.asarray(none)[0].tolist() == [[0, 0]]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -408,9 +395,9 @@ def test_grads_finite_on_dead_segment_rows(causal):
 
 
 def test_packed_fused_backward_matches_oracle():
-    """The fused one-pass backward now serves packed causal self-attention
-    (in-kernel liveness + segment mask); grads must match the oracle for
-    aligned and unaligned document layouts, whole-KV and chunked."""
+    """The backward kernels on packed causal self-attention (per-tile live
+    ranges + segment mask); grads must match the oracle for aligned and
+    unaligned document layouts, with two backward tile choices."""
     from flash_attention_tpu.ops.tuning import BlockSizes
 
     q, k, v = make_qkv(61, 1, 2, 256, 128)
@@ -432,10 +419,7 @@ def test_packed_fused_backward_matches_oracle():
             ),
             argnums=(0, 1, 2),
         )(q, k, v)
-        for bwd in (
-            BlockSizes(128, 128, 2, 0, bwd_fused=True),
-            BlockSizes(128, 128, 1, 0, bwd_fused=True, fused_kv_chunk=128),
-        ):
+        for bwd in (BlockSizes(64, 64), BlockSizes(32, 128, 4, 2)):
             ours = jax.grad(
                 loss(
                     lambda q, k, v: flash_attention(
@@ -446,4 +430,4 @@ def test_packed_fused_backward_matches_oracle():
                 argnums=(0, 1, 2),
             )(q, k, v)
             for a, b, name in zip(ours, ref, ("dq", "dk", "dv")):
-                assert_close(a, b, msg=f"{name} {boundaries} {bwd.fused_kv_chunk}")
+                assert_close(a, b, msg=f"{name} {boundaries} {bwd}")

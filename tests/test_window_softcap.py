@@ -14,7 +14,7 @@ from flash_attention_tpu.utils.testing import assert_close, make_qkv
 @pytest.mark.parametrize("window", [64, 128, 300])
 def test_sliding_window_forward(window):
     q, k, v = make_qkv(0, 1, 2, 512, 128)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=128, block_kv=64)
     got = flash_attention(q, k, v, causal=True, sliding_window=window, block_sizes=bs)
     want = reference_attention(q, k, v, causal=True, sliding_window=window)
     assert_close(got, want)
@@ -30,7 +30,7 @@ def test_sliding_window_single_tile():
 def test_sliding_window_chunked_prefill():
     # kv longer than q (decode-aligned diagonal) with a window.
     q, k, v = make_qkv(2, 1, 2, 128, 128, kv_seq=384)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=64, block_kv=64)
     got = flash_attention(q, k, v, causal=True, sliding_window=200, block_sizes=bs)
     want = reference_attention(q, k, v, causal=True, sliding_window=200)
     assert_close(got, want)
@@ -53,7 +53,7 @@ def test_softcap_forward():
 def test_softcap_with_window_multiblock():
     q, k, v = make_qkv(4, 1, 2, 512, 128)
     q = (q.astype(jnp.float32) * 8).astype(q.dtype)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=64, block_kv=128)
     got = flash_attention(
         q, k, v, causal=True, sliding_window=192, logit_softcap=2.0, block_sizes=bs
     )
@@ -109,7 +109,7 @@ def test_window_softcap_grads_match_oracle(window, cap):
     if cap is not None:
         # Scale q up so scores exceed the cap (tanh' != 1 somewhere).
         q = (q.astype(jnp.float32) * 8).astype(q.dtype)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=64, block_kv=64)
     got = grads(
         lambda q, k, v: flash_attention(
             q, k, v, causal=True, sliding_window=window, logit_softcap=cap,
@@ -129,11 +129,11 @@ def test_window_softcap_grads_match_oracle(window, cap):
 
 
 def test_window_grad_chunked_prefill():
-    # kv longer than q (diag offset) + window, through the fused backward.
+    # kv longer than q (diag offset) + window, through both bwd kernels.
     from tests.test_backward import grads
 
     q, k, v = make_qkv(9, 1, 2, 128, 128, kv_seq=384)
-    bs = BlockSizes(block_q=128, block_kv=128)
+    bs = BlockSizes(block_q=32, block_kv=64)
     got = grads(
         lambda q, k, v: flash_attention(
             q, k, v, causal=True, sliding_window=200,
@@ -177,27 +177,27 @@ def test_paged_decode_window_softcap():
 
 
 def test_window_band_fast_path_matches_oracle():
-    """window == block_kv takes the fused band kernel (_band_kernel): one
-    grid step per q block, two kv refs, plain per-sub-block softmax."""
+    """window == block_kv: every Q tile's band is exactly its leading-edge
+    tile plus its diagonal tile (a masked walk with no mask-free middle)."""
     q, k, v = make_qkv(41, 2, 4, 768, 128)
     want = reference_attention(q, k, v, causal=True, sliding_window=256)
     got = flash_attention(
         q, k, v, causal=True, sliding_window=256,
-        block_sizes=BlockSizes(256, 256, 2, 128),
+        block_sizes=BlockSizes(256, 256, 8, 2),
     )
     assert_close(got, want)
-    # Residuals (under-grad forward) through the band path.
+    # Residuals (under-grad forward) with the Q tile smaller than the band.
     got2, lse = flash_attention(
         q, k, v, causal=True, sliding_window=256, save_residuals=True,
-        block_sizes=BlockSizes(256, 256, 2, 128, diag_pipe=True),
+        block_sizes=BlockSizes(128, 256, 8, 2),
     )
     assert_close(got2, want)
-    # Gradients still flow (bwd stays on the two-pass windowed kernels).
+    # Gradients through the windowed backward kernels.
     def loss(q, k, v):
         return jnp.sum(
             flash_attention(
                 q, k, v, causal=True, sliding_window=256,
-                block_sizes=BlockSizes(256, 256, 2, 128),
+                block_sizes=BlockSizes(256, 256, 8, 2),
             ).astype(jnp.float32)
         )
 

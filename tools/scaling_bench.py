@@ -10,17 +10,19 @@ PER-CHIP problem held constant (weak scaling):
   * decode:   one decode step over an int8 KV cache sharded batch x heads
     -> tokens/s per chip
   * ring:     causal zigzag ring attention with the sequence sharded over
-    "context" (ICI sequence parallelism, ppermute + merge) -> TFLOPS per chip
+    "context" (sequence parallelism, ppermute + merge) -> TFLOPS per chip
 
 and reports efficiency(n) = per_chip(n) / per_chip(1). Pure dp/tp shards are
 communication-free by construction (the all-reduce belongs to the caller's
-output projection); the ring row is the one that exercises ICI.
+output projection); the ring row is the one that exercises the device links.
 
-On a CPU host (or with --wiring) it runs each configuration once without
-timing — the wiring check used by __graft_entry__.dryrun_multichip.
+With --wiring it runs each configuration once without timing — the wiring
+check used by __graft_entry__.dryrun_multichip. A rehearsal on virtual CPU
+devices adds --interpret (the kernels then run in the Pallas interpreter).
 
 Usage:
-    python tools/scaling_bench.py [--wiring] [--seq=4096] [--decode-seq=8192]
+    python tools/scaling_bench.py [--wiring [--interpret]] [--seq=4096]
+        [--decode-seq=8192]
 """
 
 import json
@@ -42,7 +44,7 @@ from flash_attention_tpu.parallel.sharding import (
 )
 from flash_attention_tpu.utils.benchmarking import (
     attention_flops,
-    detect_mxu_peak_tflops,
+    peak_tflops,
     scan_timer,
 )
 from flash_attention_tpu.utils.testing import make_qkv
@@ -123,7 +125,7 @@ def bench_ring(n, *, seq_per_chip, wiring, peak):
 
 
 def run(wiring: bool, seq: int, decode_seq: int, ring_seq_per_chip: int):
-    peak = detect_mxu_peak_tflops()
+    peak = None if wiring else peak_tflops()
     n_dev = len(jax.devices())
     results = {}
     for mode, bench in [
@@ -159,7 +161,13 @@ def run(wiring: bool, seq: int, decode_seq: int, ring_seq_per_chip: int):
 
 
 def main():
-    wiring = "--wiring" in sys.argv or jax.default_backend() != "tpu"
+    wiring = "--wiring" in sys.argv
+    if "--interpret" in sys.argv:
+        if not wiring:
+            sys.exit("--interpret runs no timing: give it with --wiring")
+        from flash_attention_tpu.ops.common import set_interpret_default
+
+        set_interpret_default(True)
     # Wiring mode defaults to tiny shapes (it only validates mesh wiring +
     # sharding), but an EXPLICIT --seq/--decode-seq/--ring-seq-per-chip
     # always wins so specific dispatch tiers can be wiring-checked too.
